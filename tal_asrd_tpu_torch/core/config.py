@@ -1,0 +1,110 @@
+"""Typed configuration for the frontend, the model and decoding.
+
+Own copy of the dataclasses the serving path reads (counterpart:
+tal_asrd_tpu/core/config.py). Field names and defaults are the same, so a
+test can build both packages' configs from one set of keyword arguments.
+Fields that only select a TPU lowering (`use_pallas`, `spectrum_impl`,
+`conv_impl`, `remat`) have no meaning here and are left out.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class FrontendConfig:
+    """Log-mel frontend: 16 kHz, 80 HTK mels, 25 ms periodic Hann window,
+    10 ms hop, power 2, log(mel + 1e-6), global mean subtraction."""
+
+    sample_rate: int = 16000
+    n_mels: int = 80
+    n_fft: int = 400
+    win_length: int = 400
+    hop_length: int = 160
+    f_min: float = 0.0
+    f_max: Optional[float] = None  # defaults to sample_rate / 2
+    log_eps: float = 1e-6
+    center: bool = True            # reflect-pad n_fft // 2 on both sides
+    mean_subtract: bool = True
+
+    @property
+    def effective_f_max(self) -> float:
+        return self.f_max if self.f_max is not None else self.sample_rate / 2.0
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Joint ASR model. model_type '1x' -> d_decoder 256, '2x' -> 512; both
+    4 decoder layers. TDS channel plan [n_mels, 10n, 14n, 18n], depths
+    [2, 3, 6], kernel 21, stride 2 between groups => 8x time reduction."""
+
+    model_type: str = "2x"
+    num_speakers: int = 0
+    n_mels: int = 80
+    vocab_size: int = 10000
+    n_head: int = 4
+    max_positions: int = 512
+    dropout: float = 0.2
+    embed_size: int = 64       # factorized embedding dim; 0 disables
+    spk_embed: int = 128
+    use_speaker_head: bool = False
+    tds_depths: Tuple[int, ...] = (2, 3, 6)
+    tds_kernel: int = 21
+    tds_dropout: float = 0.2
+    # Encoder padding-mask scaling: 'buffer' or 'batch_max'
+    # (models/asr.py encoder_padding_mask).
+    pad_mask_mode: str = "buffer"
+    # Gated sinusoidal positional code on the decode-side memory
+    # (`mem_pos_alpha`, init 0).
+    enc_posenc: bool = False
+    # Debug-only architecture shrink for CPU tests: width_mult scales the TDS
+    # group widths, d_decoder_override replaces the decoder width.
+    width_mult: float = 1.0
+    d_decoder_override: Optional[int] = None
+
+    def __post_init__(self):
+        if self.model_type not in ("1x", "2x"):
+            raise ValueError(f"Invalid model type {self.model_type!r}")
+
+    @property
+    def tds_channels(self) -> Tuple[int, ...]:
+        n = self.n_mels
+        if self.width_mult != 1.0:
+            # Widths stay integer multiples of n_mels (grouped-conv view).
+            return (n,) + tuple(max(1, round(w * self.width_mult)) * n
+                                for w in (10, 14, 18))
+        return (n, 10 * n, 14 * n, 18 * n)
+
+    @property
+    def d_decoder(self) -> int:
+        if self.d_decoder_override is not None:
+            return self.d_decoder_override
+        return 256 if self.model_type == "1x" else 512
+
+    @property
+    def n_decoder_layers(self) -> int:
+        return 4
+
+    @property
+    def num_tokens(self) -> int:
+        """Output vocabulary: text BPE ids plus appended speaker tokens unless
+        a separate speaker head is used."""
+        return self.vocab_size if self.use_speaker_head else self.vocab_size + self.num_speakers
+
+    @property
+    def time_reduction(self) -> int:
+        return 2 ** (len(self.tds_channels) - 1)
+
+
+@dataclass(frozen=True)
+class DecodeConfig:
+    """Decoding knobs of the serving path. The reference's fields for the
+    unaligned sliding-window decoder, LM fusion and the non-causal parity mode
+    arrive when those paths are ported."""
+
+    beam_size: int = 5
+    max_length: int = 512
+    # Run per-token decode steps through the fused layer-step kernel
+    # (ops/cuda_decode.py) — speaker-token models only.
+    use_fused_decode: bool = False

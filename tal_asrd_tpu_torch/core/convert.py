@@ -1,0 +1,102 @@
+"""Carry the reference's parameter trees into the port's modules.
+
+The reference stores parameters as a nested dict (flax naming and layouts);
+the port's modules are `nn.Module`s with PyTorch layouts. This module is the
+one place where names and layouts are translated:
+
+  reference leaf                          port state_dict entry
+  --------------------------------------  ------------------------------------
+  .../kernel  [in, out]      (Dense)      ....weight  [out, in]
+  .../kernel  [1, in, out]   (1x1 conv)   ....weight  [out, in]     (nn.Linear)
+  .../kernel  [K, C_in/G, C_out], K > 1   ....weight  [C_out, C_in/G, K]
+  .../bias                                ....bias
+  embedding/embedding  [V, E]             embedding.weight
+  embedding_proj  [E, D]                  embedding_proj   (bare parameter,
+                                          used in both directions)
+  resweight, resweight_src, mem_pos_alpha same name (0-dim)
+  layers_<i>                              layers.<i>       (nn.ModuleList)
+
+A 3-D kernel with one tap is taken for a pointwise conv: the model has no
+grouped conv with kernel 1, and `load_into` checks every shape against the
+module it fills.
+
+Leaves may be float arrays or bfloat16 bit patterns as `core/checkpoint.py`
+returns them; the latter become `torch.bfloat16` through a view, without a
+round trip through float32.
+"""
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, Iterator, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from tal_asrd_tpu_torch.core.checkpoint import is_bfloat16_bits
+
+_LAYER_RE = re.compile(r"^layers_(\d+)$")
+
+
+def to_tensor(arr: Any) -> torch.Tensor:
+    """numpy leaf -> torch tensor (a copy), bfloat16 bit patterns included."""
+    arr = np.asarray(arr)
+    if is_bfloat16_bits(arr):
+        bits = np.array(arr, copy=True).view(np.int16).reshape(arr.shape)
+        return torch.from_numpy(bits).view(torch.bfloat16)
+    return torch.from_numpy(np.array(arr, copy=True))
+
+
+def _leaves(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()
+            ) -> Iterator[Tuple[Tuple[str, ...], Any]]:
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            yield from _leaves(value, prefix + (key,))
+        else:
+            yield prefix + (key,), value
+
+
+def _convert_leaf(path: Tuple[str, ...], value: Any) -> Tuple[str, torch.Tensor]:
+    parts = []
+    for part in path[:-1]:
+        m = _LAYER_RE.match(part)
+        parts.extend(["layers", m.group(1)] if m else [part])
+    leaf = path[-1]
+    t = to_tensor(value)
+    if leaf == "kernel":
+        if t.dim() == 2:                       # Dense [in, out]
+            t = t.T
+        elif t.dim() == 3 and t.shape[0] == 1:  # pointwise conv [1, in, out]
+            t = t[0].T
+        elif t.dim() == 3:                     # grouped conv [K, C_in/G, C_out]
+            t = t.permute(2, 1, 0)
+        else:
+            raise ValueError(f"kernel {'/'.join(path)} has rank {t.dim()}")
+        parts.append("weight")
+    elif leaf == "embedding" and path[:-1] and path[-2] == "embedding":
+        parts.append("weight")
+    else:
+        parts.append(leaf)
+    return ".".join(parts), t.contiguous()
+
+
+def params_to_state_dict(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """Reference parameter tree (with or without a top-level 'params') ->
+    state_dict of the port's ASRModel and of its sub-modules."""
+    if set(tree.keys()) == {"params"}:
+        tree = tree["params"]
+    out: Dict[str, torch.Tensor] = {}
+    for path, value in _leaves(tree):
+        name, tensor = _convert_leaf(path, value)
+        if name in out:
+            raise ValueError(f"two leaves map to {name}")
+        out[name] = tensor
+    return out
+
+
+def load_into(model: nn.Module, tree: Dict[str, Any]) -> nn.Module:
+    """Fill `model` from a reference parameter tree, casting to the model's
+    dtype and device. Raises if a leaf is left over, a parameter is left
+    unfilled, or a shape disagrees."""
+    model.load_state_dict(params_to_state_dict(tree), strict=True)
+    return model

@@ -1,0 +1,195 @@
+"""Batched beam search with KV caches, as an eager loop on the device.
+
+Counterpart of tal_asrd_tpu/decode/beam.py (which runs the same search as one
+compiled while-loop). Shapes are static per call and all bookkeeping stays on
+the device; the host reads one flag per step (are all slots done?).
+
+  * score accumulation + top-k over [B, K*V], with first-step fan-out
+    expressed as -1e30 initial scores on beams 1..K-1;
+  * beam reordering gathers the self-attention KV caches along the flat beam
+    axis (skipped at K = 1, where it is the identity);
+  * retirement semantics are the reference's: `done` flags are per SLOT and
+    are NOT reordered with the beams, so a slot that produced EOS stays
+    masked for the rest of the search — including the quirk that a live
+    continuation written into a dead slot is lost. Kept for parity; each
+    retired row is stored into a fixed [B, K] finished pool;
+  * length-normalized selection at the end (score / row length), considering
+    the live rows too under `force_output`.
+
+`torch.topk` does not promise an order among equal values where the
+reference's top-k takes the lower index. Equal scores arise only among
+-1e30 entries (dead or not-yet-fanned-out beams), whose rows never reach the
+output, so no tie-break is added.
+
+Not ported yet (raise NotImplementedError): LM shallow fusion and the
+`collect_spk` / `collect_spk_embed` tracks (they need models/lm.py and the
+speaker head).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Dict
+
+import torch
+
+NEG_INF = -1e30
+
+
+@dataclass
+class BeamSearchSpec:
+    """Static parameters of a beam search invocation."""
+
+    beam_size: int
+    max_new_tokens: int
+    eos_id: int
+    vocab_size: int            # full output vocab (text + speaker tokens)
+    text_vocab_size: int       # LM vocab (speaker tokens clamped away)
+    lm_weight: float = 0.0
+    force_output: bool = False
+    collect_spk: bool = False
+    num_speakers: int = 0
+    collect_spk_embed: bool = False
+
+
+def beam_search(
+    model,
+    encoder_out: Dict[str, Any],
+    prime: torch.Tensor,           # [B, P] prime tokens (first is usually EOS)
+    spec: BeamSearchSpec,
+    lm=None,
+) -> Dict[str, torch.Tensor]:
+    """Run beam search. `model` is an ASRModel or a FusedASRDecoder (anything
+    with `init_decode_state` and `decode_step`). Returns device tensors:
+      tokens   [B, P + max_new]   best row per batch item
+      lengths  [B]                valid row length (incl. prime and EOS)
+      scores   [B]                length-normalized score of the chosen row
+      found    [B]                whether any beam terminated
+    """
+    if lm is not None or spec.lm_weight > 0:
+        raise NotImplementedError("LM shallow fusion is not ported yet")
+    if spec.collect_spk or spec.collect_spk_embed:
+        raise NotImplementedError(
+            "the speaker tracks (collect_spk, collect_spk_embed) are not ported yet")
+    b, p = prime.shape
+    k = spec.beam_size
+    v = spec.vocab_size
+    bk = b * k
+    l_buf = p + spec.max_new_tokens
+    device = prime.device
+    prime = prime.to(torch.long)
+
+    # --- Expand encoder outputs across beams ---------------------------------
+    mask = encoder_out.get("encoder_padding_mask")
+    enc = {
+        "encoder_out": encoder_out["encoder_out"].repeat_interleave(k, dim=0),
+        "speaker_out": None,
+        "encoder_padding_mask": (
+            None if mask is None else mask.repeat_interleave(k, dim=0)),
+    }
+    state = model.init_decode_state(enc, bk, l_buf)
+
+    tokens = torch.zeros((bk, l_buf), dtype=torch.long, device=device)
+    tokens[:, :p] = prime.repeat_interleave(k, dim=0)
+
+    # Prefill the caches on the prime prefix (small P; the last token feeds
+    # the first search step).
+    logits = None
+    for i in range(p):
+        cur_tok = prime[:, i:i + 1].repeat_interleave(k, dim=0)  # [BK, 1]
+        logits, _, _, state = model.decode_step(cur_tok, state)
+
+    # --- Search state --------------------------------------------------------
+    # Beams 1..K-1 start at -inf so step 0 fans out from beam 0 only.
+    scores = torch.full((b, k), NEG_INF, dtype=torch.float32, device=device)
+    scores[:, 0] = 0.0
+    done = torch.zeros((bk,), dtype=torch.bool, device=device)
+    fin_tokens = torch.zeros((b, k, l_buf), dtype=torch.long, device=device)
+    fin_norm = torch.full((b, k), NEG_INF, dtype=torch.float32, device=device)
+    fin_len = torch.zeros((b, k), dtype=torch.long, device=device)
+    fin_valid = torch.zeros((b, k), dtype=torch.bool, device=device)
+    batch_offset = (torch.arange(b, device=device) * k)[:, None]  # [B, 1]
+
+    step = 0
+    while step < spec.max_new_tokens and not bool(done.all()):
+        logprobs = torch.log_softmax(logits.to(torch.float32), dim=-1)  # [BK, V]
+        total = logprobs + scores.reshape(-1, 1)
+        total = torch.where(done[:, None], NEG_INF, total)
+        scores, idx = torch.topk(total.reshape(b, k * v), k, dim=-1)    # [B, K]
+        best_tok = idx % v                                              # [B, K]
+        flat_beams = (idx // v + batch_offset).reshape(-1)              # [BK]
+
+        # Reorder rows + caches by source beam; at K = 1 the gather is the
+        # identity and skipping it saves two full cache copies per step.
+        if k > 1:
+            tokens = tokens.index_select(0, flat_beams)
+            state = dict(state)
+            state["caches"] = tuple(
+                {name: t.index_select(0, flat_beams)
+                 for name, t in cache.items()}
+                for cache in state["caches"])
+        tokens[:, p + step] = best_tok.reshape(-1)
+
+        # Retirement: slots whose chosen token is EOS and that are not already
+        # dead store their row and die. Slot done flags are NOT reordered.
+        is_eos = best_tok.reshape(-1) == spec.eos_id
+        newly_bk = (is_eos & ~done).reshape(b, k)
+        row_len = p + step + 1
+        fin_tokens = torch.where(newly_bk[..., None],
+                                 tokens.reshape(b, k, -1), fin_tokens)
+        fin_norm = torch.where(newly_bk, scores / float(row_len), fin_norm)
+        fin_len = torch.where(newly_bk, row_len, fin_len)
+        fin_valid = fin_valid | newly_bk
+        done = done | is_eos
+        step += 1
+
+        # Next-step logits from the chosen tokens (not needed after the last
+        # step: nothing reads them).
+        if step < spec.max_new_tokens:
+            logits, _, _, state = model.decode_step(best_tok.reshape(-1, 1), state)
+
+    # --- Final selection -------------------------------------------------------
+    if spec.force_output:
+        # Add the live rows as candidates with length-normalized running scores.
+        live_norm = scores / float(p + step)
+        live_valid = ~done.reshape(b, k)
+        take_live = live_valid & (~fin_valid | (live_norm > fin_norm))
+        fin_norm = torch.where(take_live, live_norm, fin_norm)
+        fin_tokens = torch.where(take_live[..., None],
+                                 tokens.reshape(b, k, -1), fin_tokens)
+        fin_len = torch.where(take_live, p + step, fin_len)
+        fin_valid = fin_valid | live_valid
+
+    sel_norm = torch.where(fin_valid, fin_norm, NEG_INF)
+    best = sel_norm.argmax(dim=1)                                        # [B]
+    rows = torch.arange(b, device=device)
+    return {
+        "tokens": fin_tokens[rows, best],
+        "lengths": fin_len[rows, best],
+        "scores": fin_norm[rows, best],
+        "found": fin_valid.any(dim=1),
+    }
+
+
+def make_generate_fn(model, spec: BeamSearchSpec, decoder=None,
+                     device: str = "cuda") -> Callable[..., Dict[str, torch.Tensor]]:
+    """Build the serving entry point: generate(audio, audio_lens, prime) ->
+    {tokens, lengths, scores, found} = model.encode + beam_search, under
+    torch.inference_mode().
+
+    `model` is the ASRModel (it encodes); `decoder` steps the search and
+    defaults to the model itself — pass a FusedASRDecoder built on the same
+    model to decode through the fused layer-step kernel. Inputs may be numpy
+    arrays or tensors on any device; they are moved to `device`, where the
+    model must already live."""
+    dec = model if decoder is None else decoder
+    dev = torch.device(device)
+
+    def generate(audio, audio_lens, prime) -> Dict[str, torch.Tensor]:
+        with torch.inference_mode():
+            audio_t = torch.as_tensor(audio).to(dev)
+            lens_t = None if audio_lens is None else torch.as_tensor(audio_lens).to(dev)
+            prime_t = torch.as_tensor(prime).to(dev)
+            enc = model.encode(audio_t, lens_t)
+            return beam_search(dec, enc, prime_t, spec)
+
+    return generate

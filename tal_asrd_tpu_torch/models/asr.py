@@ -1,0 +1,264 @@
+"""Joint ASR + speaker-diarization encoder-decoder model.
+
+Counterpart of tal_asrd_tpu/models/asr.py: log-mel frontend -> TDS conv
+encoder (8x time reduction) -> linear projection to decoder width -> ReZero
+transformer decoder with cross-attention, factorized tied token embeddings
+(embed_size 64), vocabulary = text BPE + appended speaker tokens.
+
+  * decode() returns (logits, per-layer cross-attention weights);
+  * init_decode_state()/decode_step() provide KV-cached single-token decoding
+    for the beam search. The decode state is a plain dict whose `index` is a
+    Python int; the self-attention caches in it are updated in place;
+  * parameters are stored in the module dtype (`dtype=torch.bfloat16` in
+    production, float32 in the parity tests); the frontend stays float32.
+
+Not ported yet: the separate speaker head (`use_speaker_head=True` raises
+NotImplementedError; `decode_spk` comes with it) and SpecAugment. The model
+is inference-only and is put in eval mode at construction.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from tal_asrd_tpu_torch.core.config import FrontendConfig, ModelConfig
+from tal_asrd_tpu_torch.models.decoder import (
+    PositionalEncoding,
+    RZDecoder,
+    sinusoidal_positions,
+)
+from tal_asrd_tpu_torch.models.tds import TDS
+from tal_asrd_tpu_torch.ops.logmel import log_mel_spectrogram
+
+
+def encoder_padding_mask(audio_lens: torch.Tensor, max_audio_len: int,
+                         enc_t: int, mode: str = "buffer") -> torch.Tensor:
+    """[B] sample lengths -> [B, enc_t] bool mask, True = padding.
+
+    mode='buffer' (default): integer-division scaling
+    `scaled_lens = audio_lens // (max_audio_len // enc_t)` with the padded
+    buffer length as the maximum — well-defined under bucketed static shapes.
+
+    mode='batch_max': the divisor is derived from the BATCH max length, so
+    when the longest sample underfills the buffer every sample's scaled
+    length grows by max_audio_len / batch_max."""
+    if mode == "batch_max":
+        factor = torch.clamp(audio_lens.max() // max(enc_t, 1), min=1)
+    else:
+        factor = max(max_audio_len // max(enc_t, 1), 1)
+    scaled = audio_lens // factor
+    pos = torch.arange(enc_t, device=audio_lens.device)
+    return pos[None, :] >= scaled[:, None]
+
+
+class ASRModel(nn.Module):
+    def __init__(self, cfg: ModelConfig,
+                 frontend: FrontendConfig = FrontendConfig(),
+                 dtype: torch.dtype = torch.float32,
+                 device: str = "cuda",
+                 generator: Optional[torch.Generator] = None):
+        """Parameters are drawn on the CPU from `generator` (the global RNG
+        if None), then moved to `device` in `dtype`."""
+        super().__init__()
+        if cfg.use_speaker_head:
+            raise NotImplementedError(
+                "the separate speaker head is not ported yet; use the "
+                "speaker-token mode (use_speaker_head=False)")
+        self.cfg = cfg
+        self.frontend = frontend
+        self.dtype = dtype
+        c = cfg
+        d = c.d_decoder
+        self.encoder = TDS(
+            input_size=c.n_mels, sizes=c.tds_channels, depths=c.tds_depths,
+            kernel=c.tds_kernel, dropout=c.tds_dropout,
+        )
+        self.decoder_proj = nn.Linear(c.tds_channels[-1], d)
+        self.enc_drop = nn.Dropout(c.dropout)
+
+        embed_dim = c.embed_size if c.embed_size else d
+        self.embedding = nn.Embedding(c.num_tokens, embed_dim)
+        if c.embed_size:
+            # Factorized-embedding projection [E, D], used forward
+            # (embed -> d) and transposed on the output head: a bare
+            # parameter because both directions share it.
+            self.embedding_proj = nn.Parameter(torch.empty(embed_dim, d))
+        self.pos_dec = PositionalEncoding(d, c.max_positions, c.dropout)
+        if c.enc_posenc:
+            self.mem_pos_alpha = nn.Parameter(torch.zeros(()))
+        self.decoder = RZDecoder(
+            n_layers=c.n_decoder_layers, d_model=d, n_head=c.n_head,
+            dim_feedforward=4 * d, dropout=c.dropout,
+        )
+        self.reset_parameters(generator)
+        self.to(device=device, dtype=dtype)
+        self.eval()
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        """The reference's initial distribution: matrices and conv kernels
+        normal with std 1/sqrt(fan_in), the embedding table uniform in
+        +-1/sqrt(embed_dim), biases and the ReZero scalars zero. With the
+        scalars at zero every decoder branch is multiplied away, so parity
+        probes set them to a non-zero value first."""
+        for name, p in self.named_parameters():
+            if p.dim() <= 1:
+                p.zero_()
+            elif name == "embedding.weight":
+                bound = 1.0 / p.shape[1] ** 0.5
+                p.uniform_(-bound, bound, generator=generator)
+            elif name == "embedding_proj":
+                p.normal_(std=1.0 / p.shape[0] ** 0.5, generator=generator)
+            else:  # Linear [out, in] or conv [C_out, C_in / G, K]
+                fan_in = p[0].numel()
+                p.normal_(std=1.0 / fan_in ** 0.5, generator=generator)
+
+    # ------------------------------------------------------------------
+    # Encoder side
+    # ------------------------------------------------------------------
+    def extract_features(self, audio: torch.Tensor,
+                         audio_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Raw audio [B, T] -> log-mel [B, F, n_mels] in the model dtype.
+
+        int16 input is accepted and scaled on the device (16-bit PCM at the
+        source, so it is lossless and halves the host->device transfer).
+        audio_lens enables the masked mean (ops/logmel.py)."""
+        if audio.dtype == torch.int16:
+            audio = audio.to(torch.float32) / 32768.0
+        mel = log_mel_spectrogram(audio.to(torch.float32), self.frontend,
+                                  audio_lens=audio_lens)
+        return mel.to(self.dtype)
+
+    def encode_features(
+        self, feats: torch.Tensor, audio_lens: Optional[torch.Tensor] = None,
+        max_audio_len: Optional[int] = None,
+    ) -> Dict[str, Any]:
+        """Log-mel -> encoder memory dict."""
+        h = self.encoder(feats)  # [B, S, C_enc]
+        x = self.decoder_proj(h)
+        mask = None
+        if audio_lens is not None:
+            if max_audio_len is None:
+                raise ValueError("audio_lens given without max_audio_len")
+            mask = encoder_padding_mask(audio_lens, max_audio_len, x.shape[1],
+                                        mode=self.cfg.pad_mask_mode)
+        return {"encoder_out": x, "speaker_out": None,
+                "encoder_padding_mask": mask}
+
+    def encode(self, audio: torch.Tensor,
+               audio_lens: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+        feats = self.extract_features(audio, audio_lens=audio_lens)
+        return self.encode_features(feats, audio_lens, audio.shape[-1])
+
+    # ------------------------------------------------------------------
+    # Decoder side
+    # ------------------------------------------------------------------
+    def add_mem_posenc(self, mem: torch.Tensor) -> torch.Tensor:
+        """Gated positional code on decode-side memory (enc_posenc), applied
+        wherever memory enters cross-attention K/V, after any window slicing,
+        so positions are window-relative."""
+        if not self.cfg.enc_posenc:
+            return mem
+        pe = torch.from_numpy(
+            sinusoidal_positions(mem.shape[1], mem.shape[-1])
+        ).to(device=mem.device, dtype=mem.dtype)
+        return mem + self.mem_pos_alpha.to(mem.dtype) * pe[None]
+
+    def embed_tokens(self, y: torch.Tensor) -> torch.Tensor:
+        e = self.embedding(y)
+        if self.cfg.embed_size:
+            e = e @ self.embedding_proj
+        return e
+
+    def output_logits(self, h: torch.Tensor) -> torch.Tensor:
+        """Tied factorized head: h -> embed space -> vocab."""
+        if self.cfg.embed_size:
+            h = h @ self.embedding_proj.T
+        return h @ self.embedding.weight.T
+
+    def decode(
+        self,
+        y_prev: torch.Tensor,             # [B, L] token ids
+        encoder_out: Dict[str, Any],
+        causal: bool = True,
+        tgt_key_padding_mask: Optional[torch.Tensor] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Teacher-forced / full-prefix decode. Returns (logits
+        [B, L, num_tokens], cross-attn weights [layers, B, L, S])."""
+        mem = self.add_mem_posenc(self.enc_drop(encoder_out["encoder_out"]))
+        y = self.pos_dec(self.embed_tokens(y_prev))
+        h, attn, _ = self.decoder(
+            y, mem, causal=causal,
+            memory_key_padding_mask=encoder_out["encoder_padding_mask"],
+            tgt_key_padding_mask=tgt_key_padding_mask,
+        )
+        return self.output_logits(h), attn
+
+    def forward(self, audio: torch.Tensor, y_prev: torch.Tensor,
+                audio_lens: torch.Tensor):
+        """Full forward. Returns ((lm_logits, None), encoder_out); the second
+        slot is the speaker head's, which is not ported yet."""
+        encoder_out = self.encode(audio, audio_lens)
+        lm_logits, _ = self.decode(y_prev, encoder_out, causal=True)
+        return (lm_logits, None), encoder_out
+
+    # ------------------------------------------------------------------
+    # KV-cached incremental decoding
+    # ------------------------------------------------------------------
+    def init_decode_state(self, encoder_out: Dict[str, Any], batch: int,
+                          max_len: int) -> Dict[str, Any]:
+        """Decode state: per-layer cross-attn K/V (one-time) + empty
+        self-attn caches + step index (a Python int)."""
+        return {
+            "mem_kvs": self.decoder.precompute_mem_kvs(
+                self.add_mem_posenc(encoder_out["encoder_out"])),
+            "caches": self.decoder.init_cache(batch, max_len),
+            "index": 0,
+            "mask": encoder_out["encoder_padding_mask"],
+        }
+
+    def decode_step(self, y_tok: torch.Tensor, state: Dict[str, Any]):
+        """One decode step with KV caches.
+
+        y_tok: [B, 1] current input token. Returns (logits [B, num_tokens],
+        None (speaker-head logits), mean-layer cross-attn [B, S], new_state).
+        The caches inside `state` are written in place."""
+        idx = state["index"]
+        y = self.pos_dec(self.embed_tokens(y_tok), offset=idx)
+        h, attn, new_caches = self.decoder(
+            y, None,
+            memory_key_padding_mask=state["mask"],
+            caches=state["caches"], cache_index=idx, mem_kvs=state["mem_kvs"],
+        )
+        logits = self.output_logits(h)[:, -1]
+        new_state = dict(state, caches=new_caches, index=idx + 1)
+        # attn: [layers, B, 1, S] -> mean over layers -> [B, S]
+        attn_mean = attn[:, :, 0, :].mean(dim=0)
+        return logits, None, attn_mean, new_state
+
+    # ------------------------------------------------------------------
+    # Window-based decoding helpers
+    # ------------------------------------------------------------------
+    def precompute_mem_kvs(self, memory: torch.Tensor):
+        """Cross-attention K/V for an (already sliced) encoder window."""
+        return self.decoder.precompute_mem_kvs(self.add_mem_posenc(memory))
+
+    def decode_prefill(
+        self,
+        y: torch.Tensor,                      # [B, P] history token buffer
+        mem_kvs,
+        mem_mask: Optional[torch.Tensor],     # [B, S] True = pad
+        cache_len: int,
+    ):
+        """Causal full decode of a history buffer that also fills the
+        self-attention KV caches (positions restart at 0). Returns (logits
+        [B, P, V], mean-layer cross-attn [B, P, S], caches)."""
+        caches = self.decoder.init_cache(y.shape[0], cache_len)
+        e = self.pos_dec(self.embed_tokens(y))
+        h, attn, caches = self.decoder(
+            e, None, memory_key_padding_mask=mem_mask,
+            caches=caches, cache_index=0, mem_kvs=mem_kvs,
+        )
+        return self.output_logits(h), attn.mean(dim=0), caches

@@ -1,0 +1,144 @@
+"""The port's checkpoint reader and weight converter on the tracked
+checkpoint (accuracy_release/avg_last_3.bf16.msgpack, model `1x`): the
+pure-Python msgpack reader against flax's, every leaf placed, and one
+teacher-forced forward against the JAX model on the same weights."""
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from flax import serialization
+
+from tal_asrd_tpu.core.config import ModelConfig as JModelConfig
+from tal_asrd_tpu.models.asr import ASRModel as JASRModel
+from tal_asrd_tpu_torch.core import checkpoint as tckpt
+from tal_asrd_tpu_torch.core.config import ModelConfig
+from tal_asrd_tpu_torch.core.convert import load_into, params_to_state_dict, to_tensor
+from tal_asrd_tpu_torch.models.asr import ASRModel
+
+CKPT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                    "accuracy_release", "avg_last_3.bf16.msgpack")
+CFG = dict(model_type="1x", num_speakers=8, vocab_size=300)
+
+
+def _flat(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat(v, prefix + k + "/")
+        else:
+            yield prefix + k, v
+
+
+@pytest.fixture(scope="module")
+def trees():
+    with open(CKPT, "rb") as f:
+        data = f.read()
+    return tckpt.msgpack_restore(data), serialization.msgpack_restore(data)
+
+
+def test_reader_returns_the_same_151_arrays_bit_for_bit(trees):
+    ours, ref = dict(_flat(trees[0])), dict(_flat(trees[1]))
+    assert len(ours) == len(ref) == 151
+    assert list(ours) == list(ref)                   # same keys, same order
+    for key, a in ours.items():
+        b = np.asarray(ref[key])
+        assert a.shape == b.shape, key
+        assert b.dtype.name == "bfloat16" and tckpt.is_bfloat16_bits(a), key
+        np.testing.assert_array_equal(a.view(np.uint16), b.view(np.uint16), err_msg=key)
+
+
+def test_load_pytree_reads_the_file(trees):
+    tree = tckpt.load_pytree(CKPT)
+    assert set(tree) == set(trees[0])
+    assert tree["decoder_proj"]["kernel"].shape == (1440, 256)
+
+
+def test_bfloat16_bits_become_torch_bfloat16(trees):
+    a = trees[0]["embedding_proj"]
+    t = to_tensor(a)
+    assert t.dtype == torch.bfloat16 and tuple(t.shape) == (64, 256)
+    ref = np.asarray(trees[1]["embedding_proj"]).astype(np.float32)
+    np.testing.assert_array_equal(t.float().numpy(), ref)
+    s = to_tensor(trees[0]["decoder"]["layers_0"]["resweight"])
+    assert s.dim() == 0 and s.dtype == torch.bfloat16
+    # a third-party bfloat16 array (as flax returns it) converts the same way
+    np.testing.assert_array_equal(
+        to_tensor(np.asarray(trees[1]["embedding_proj"])).float().numpy(), ref)
+
+
+def test_converter_places_every_leaf(trees):
+    sd = params_to_state_dict(trees[0])
+    assert len(sd) == 151
+    model = ASRModel(ModelConfig(**CFG), dtype=torch.bfloat16, device="cpu")
+    assert set(sd) == set(model.state_dict())
+    load_into(model, {"params": trees[0]})            # with the wrapper too
+    w = model.encoder.down_1.weight.detach()                   # conv [K, C/G, C_out] -> [C_out, C/G, K]
+    ref = np.asarray(trees[1]["encoder"]["down_1"]["kernel"]).astype(np.float32)
+    np.testing.assert_array_equal(w.float().numpy(), ref.transpose(2, 1, 0))
+    fc = model.encoder.group_0_block_0.fc1.weight.detach()     # 1x1 conv [1, in, out] -> [out, in]
+    ref = np.asarray(trees[1]["encoder"]["group_0_block_0"]["fc1"]["kernel"]).astype(np.float32)
+    np.testing.assert_array_equal(fc.float().numpy(), ref[0].T)
+    assert float(model.decoder.layers[2].resweight_src.detach()) == float(
+        np.asarray(trees[1]["decoder"]["layers_2"]["resweight_src"]).astype(np.float32))
+
+
+def test_converter_raises_on_leftover_and_on_missing(trees):
+    model = ASRModel(ModelConfig(**CFG), dtype=torch.float32, device="cpu")
+    extra = dict(trees[0], stray={"kernel": np.zeros((2, 2), np.float32)})
+    with pytest.raises(RuntimeError):
+        load_into(model, extra)
+    missing = {k: v for k, v in trees[0].items() if k != "decoder_proj"}
+    with pytest.raises(RuntimeError):
+        load_into(model, missing)
+    wrong = ASRModel(ModelConfig(model_type="1x", num_speakers=9, vocab_size=300),
+                     dtype=torch.float32, device="cpu")
+    with pytest.raises(RuntimeError):
+        load_into(wrong, trees[0])                    # embedding rows disagree
+
+
+def test_reader_rejects_truncated_and_trailing_data():
+    with pytest.raises(ValueError):
+        tckpt.msgpack_restore(b"\x81\xa1a")
+    with pytest.raises(ValueError):
+        tckpt.msgpack_restore(b"\x01\x02")
+
+
+def test_reader_handles_the_scalar_and_container_types_flax_emits():
+    tree = {"a": np.arange(6, dtype=np.float32).reshape(2, 3), "n": {"i": 7, "f": 0.5,
+            "s": "txt", "neg": -3, "big": 70000, "t": True, "none": None,
+            "sc": np.float32(1.5), "l": [1, 2, 3]}}
+    got = tckpt.msgpack_restore(serialization.msgpack_serialize(tree))
+    np.testing.assert_array_equal(got["a"], tree["a"])
+    assert got["n"]["i"] == 7 and got["n"]["f"] == 0.5 and got["n"]["s"] == "txt"
+    assert got["n"]["neg"] == -3 and got["n"]["big"] == 70000 and got["n"]["t"] is True
+    assert got["n"]["none"] is None and got["n"]["sc"] == np.float32(1.5)
+    assert got["n"]["l"] == [1, 2, 3]
+
+
+def test_teacher_forced_forward_matches_jax_on_the_checkpoint(trees):
+    """2 s of audio through both full-width 1x models in float32, the weights
+    being the checkpoint's bf16 values cast up. atol 2e-3: logits span tens of
+    units after 11 TDS blocks and 4 decoder layers of f32 sums taken in
+    different orders."""
+    rng = np.random.default_rng(0)
+    t = np.arange(32000, dtype=np.float32) / 16000.0
+    audio = (rng.standard_normal((2, 32000)) * 0.02
+             + 0.1 * np.sin(2 * np.pi * 440.0 * t)[None]).astype(np.float32)
+    lens = np.array([32000, 25000], np.int32)
+    y = rng.integers(0, 308, size=(2, 6)).astype(np.int32)
+
+    params32 = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float32), trees[1])
+    jmodel = JASRModel(JModelConfig(conv_impl="xla", **CFG), dtype=jnp.float32)
+    fwd = jax.jit(lambda p, a, yy, l: jmodel.apply({"params": p}, a, yy, l)[0][0])
+    ref = np.asarray(fwd(params32, jnp.asarray(audio), jnp.asarray(y), jnp.asarray(lens)))
+
+    tmodel = ASRModel(ModelConfig(**CFG), dtype=torch.float32, device="cpu")
+    load_into(tmodel, trees[0])
+    with torch.no_grad():
+        (ours, _), _ = tmodel(torch.from_numpy(audio), torch.from_numpy(y).long(),
+                              torch.from_numpy(lens))
+    assert ours.shape == ref.shape == (2, 6, 308)
+    np.testing.assert_allclose(ours.numpy(), ref, rtol=0, atol=2e-3)
+    np.testing.assert_array_equal(ours.numpy().argmax(-1), ref.argmax(-1))

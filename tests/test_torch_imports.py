@@ -1,0 +1,94 @@
+"""The port stands alone: importing every module of tal_asrd_tpu_torch (and
+chip_smoke.py) pulls in neither jax, flax, optax nor the JAX package, builds
+no kernel and needs no GPU; and every entry point's `device` defaults to
+"cuda"."""
+import inspect
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _port_modules():
+    import tal_asrd_tpu_torch
+    return sorted(m.name for m in pkgutil.walk_packages(
+        tal_asrd_tpu_torch.__path__, "tal_asrd_tpu_torch."))
+
+
+def test_importing_every_port_module_leaves_jax_out():
+    mods = _port_modules()
+    assert len(mods) >= 16, mods
+    code = (
+        "import importlib, sys\n"
+        f"sys.path.insert(0, {ROOT!r})\n"
+        f"for m in {mods!r} + ['chip_smoke']:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'tal_asrd_tpu', 'msgpack', 'ml_dtypes', 'triton'))\n"
+        "print('BAD=' + ','.join(bad))\n"
+        "import tal_asrd_tpu_torch.ops._build as b\n"
+        "print('BUILT=' + str(b._lib is not None))\n"
+    )
+    # -S -E: no site customisation, no inherited PYTHON* variables, so only
+    # the port's own imports decide what ends up in sys.modules; site-packages
+    # is put back by hand for torch and numpy.
+    site_dirs = [p for p in sys.path if p.endswith("site-packages")]
+    boot = f"import sys; sys.path.extend({site_dirs!r})\n"
+    res = subprocess.run([sys.executable, "-S", "-E", "-c", boot + code],
+                         capture_output=True, text=True, cwd=ROOT, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert "BAD=\n" in res.stdout + "\n", res.stdout
+    assert "BUILT=False" in res.stdout
+
+
+def test_no_source_line_imports_jax_or_the_jax_package():
+    pat = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|tal_asrd_tpu)(\.|\s|$)")
+    hits = []
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for base, _, names in os.walk(os.path.join(ROOT, "tal_asrd_tpu_torch")):
+        files += [os.path.join(base, n) for n in names if n.endswith(".py")]
+    for path in files:
+        with open(path) as f:
+            hits += [f"{path}:{i}" for i, line in enumerate(f, 1) if pat.match(line)]
+    assert not hits, hits
+
+
+@pytest.mark.parametrize("target", ["ASRModel", "make_generate_fn"])
+def test_entry_points_default_to_cuda(target):
+    from tal_asrd_tpu_torch.decode.beam import make_generate_fn
+    from tal_asrd_tpu_torch.models.asr import ASRModel
+    fn = {"ASRModel": ASRModel.__init__, "make_generate_fn": make_generate_fn}[target]
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_chip_smoke_fails_without_a_gpu():
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU; the check is for machines without one")
+    res = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py")],
+                         capture_output=True, text=True, cwd=ROOT, timeout=300)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
+    assert "needs an NVIDIA GPU" in res.stderr
+
+
+def test_cuda_tensor_never_reaches_the_plain_version():
+    """The wrappers pick the plain version by `device.type == "cpu"` alone and
+    wrap neither the build nor the launch in a try."""
+    import tal_asrd_tpu_torch.ops.cuda_decode as cd
+    import tal_asrd_tpu_torch.ops.cuda_kernels as ck
+    for mod, wrapper, plain in ((cd, cd.fused_layer_step, "layer_step_plain"),
+                                (ck, ck.fused_logmel_project, "logmel_project_plain")):
+        src = inspect.getsource(wrapper)
+        assert "try:" not in src and "except" not in src
+        assert src.count(plain + "(") == 1
+        before, after = src.split(plain + "(")
+        assert 'device.type == "cpu"' in before.splitlines()[-2] + before.splitlines()[-1]
+        assert wrapper.launches == 0 or isinstance(wrapper.launches, int)
+    assert "try:" not in inspect.getsource(__import__(
+        "tal_asrd_tpu_torch.ops._build", fromlist=["x"]).load_library)
