@@ -6,17 +6,22 @@
 
 Builds the port's CUDA kernels from tal_asrd_tpu_torch/csrc/ with nvcc, holds
 each against its plain PyTorch version on the card at the serving path's
-shapes, then drives the serving path (`make_generate_fn`: log-mel -> TDS
-encoder -> fused decoder step -> beam search) at full width for the `2x`
-model (seeded weights) and the `1x` model (the tracked checkpoint
-accuracy_release/avg_last_3.bf16.msgpack), each through the fused kernels and
-through the unfused decoder, and compares the two.
+shapes — the layer step K1 in bf16/f32 storage and with int8 cross K/V (kv8),
+int8 weights (w8) or both, the stacked all-layers step K3 in each of those
+modes, K3 against a chain of four K1 launches, the log-mel projection K2 —
+and times each. Then it drives the serving path (`make_generate_fn`:
+log-mel -> TDS encoder -> fused decoder step -> beam search) at full width
+through each decoder configuration — the `2x` model (seeded weights) per
+layer, kv8, w8, kv8+w8, stacked and stacked kv8+w8; the `1x` model (the
+tracked checkpoint accuracy_release/avg_last_3.bf16.msgpack) per layer and
+stacked kv8+w8 — and holds each against the unfused decoder.
 
 Prints one JSON object per line: `device`, one `kernel` line per check,
-`serve_2x`, `serve_1x_checkpoint`, `kernels` (every kernel of each model's
-path with its launch count in that model's one timed fused greedy generate,
-its error against the plain version, its time, the plain version's, a library
-call's where one exists, and the least time the card could take), and last
+`k3_vs_k1_chain`, `kernel_timing`, one `serve_*` line per configuration,
+`kernels` (every kernel of each configuration's path with its launch count in
+that configuration's one timed fused greedy generate, its error against the
+plain version, its time, the plain version's, a library call's where one
+exists, and the least time the card could take), and last
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 Exits non-zero, without that line, if there is no CUDA device, if a kernel
 does not build or launch, or if any comparison misses its tolerance.
@@ -147,8 +152,9 @@ def check_logmel(torch, dev, b):
 # ---------------------------------------------------------------------------
 # Phase 3: fused_layer_step
 # ---------------------------------------------------------------------------
-def make_layer_inputs(torch, dev, rng, b, d, h, s, l_buf, dtype, n_sets=1):
-    """Seeded packed weights (ReZero scalars 0.3), cross K/V, pad bias."""
+def make_layer_inputs(torch, dev, rng, b, d, s, dtype):
+    """Seeded packed weights (ReZero scalars 0.3), cross K/V, pad bias and
+    three inputs x, from numpy."""
     f = 4 * d
 
     def mat(k, n):
@@ -160,25 +166,21 @@ def make_layer_inputs(torch, dev, rng, b, d, h, s, l_buf, dtype, n_sets=1):
         return torch.from_numpy(
             (rng.standard_normal(n) * 0.1).astype(np.float32)).to(dev)
 
-    sets = []
-    for _ in range(n_sets):
-        rw = torch.tensor([0.3, 0.3], dtype=torch.float32, device=dev)
-        w = {"wqkv": mat(d, 3 * d), "bqkv": vec(3 * d), "wso": mat(d, d),
-             "bso": vec(d), "wcq": mat(d, d), "bcq": vec(d), "wco": mat(d, d),
-             "bco": vec(d), "wf1": mat(d, f), "bf1": vec(f), "wf2": mat(f, d),
-             "bf2": vec(d), "rw": rw, "resweight": rw[0], "resweight_src": rw[1]}
-        mk = torch.from_numpy(
-            rng.standard_normal((b, s, d)).astype(np.float32)).to(dev).to(dtype)
-        mv = torch.from_numpy(
-            rng.standard_normal((b, s, d)).astype(np.float32)).to(dev).to(dtype)
-        sets.append((w, mk, mv))
+    rw = torch.tensor([0.3, 0.3], dtype=torch.float32, device=dev)
+    w = {"wqkv": mat(d, 3 * d), "bqkv": vec(3 * d), "wso": mat(d, d),
+         "bso": vec(d), "wcq": mat(d, d), "bcq": vec(d), "wco": mat(d, d),
+         "bco": vec(d), "wf1": mat(d, f), "bf1": vec(f), "wf2": mat(f, d),
+         "bf2": vec(d), "rw": rw, "resweight": rw[0], "resweight_src": rw[1]}
+    mk, mv = (torch.from_numpy(
+        rng.standard_normal((b, s, d)).astype(np.float32)).to(dev).to(dtype)
+        for _ in range(2))
     mask = np.zeros((b, s), bool)
     for lane in range(0, b, 3):          # a padded tail on some lanes
         mask[lane, s - 5 - 7 * (lane % 5):] = True
     bias = torch.from_numpy(np.where(mask, -1e9, 0.0).astype(np.float32)).to(dev)
     xs = torch.from_numpy(
         (rng.standard_normal((3, b, d)) * 0.5).astype(np.float32)).to(dev).to(dtype)
-    return sets, bias, xs
+    return w, mk, mv, bias, xs
 
 
 def bf16_ulp(t):
@@ -199,40 +201,16 @@ def check_layer_step(torch, dev, name, b, d, h, s, l_buf, dtype, first_index):
         fused_layer_step, layer_step_plain)
 
     rng = np.random.default_rng(SEED + d + s + 1000 * first_index + b)
-    sets, bias, xs = make_layer_inputs(torch, dev, rng, b, d, h, s, l_buf, dtype)
-    w, mk, mv = sets[0]
-    ck_k, cv_k = (torch.from_numpy(
+    w, mk, mv, bias, xs = make_layer_inputs(torch, dev, rng, b, d, s, dtype)
+    ck, cv = (torch.from_numpy(
         rng.standard_normal((b, l_buf, d)).astype(np.float32)).to(dev).to(dtype)
         for _ in range(2))
-    ck_p, cv_p = ck_k.clone(), cv_k.clone()
-    errs = {"x_out": 0.0, "attn": 0.0, "cache": 0.0, "cache_ulps": 0.0}
-    attn_max = 0.0
-    for step in range(3):               # chained: the caches carry over
-        index = first_index + step
-        xo, at, ck_k, cv_k = fused_layer_step(
-            xs[step], w, ck_k, cv_k, mk, mv, bias, index, n_head=h)
-        torch.cuda.synchronize()
-        xr, ar, ck_p, cv_p = layer_step_plain(
-            xs[step], w, ck_p, cv_p, mk, mv, bias, index, h)
-        attn_max = max(attn_max, float(ar.max()))
-        errs["x_out"] = max(errs["x_out"], float((xo.float() - xr.float()).abs().max()))
-        errs["attn"] = max(errs["attn"], float((at - ar).abs().max()))
-        for a, r in ((ck_k, ck_p), (cv_k, cv_p)):
-            diff = (a.float() - r.float()).abs()
-            errs["cache"] = max(errs["cache"], float(diff.max()))
-            if dtype == torch.bfloat16:
-                errs["cache_ulps"] = max(
-                    errs["cache_ulps"], float((diff / bf16_ulp(r.float())).max()))
-        if not all(torch.isfinite(t.float()).all() for t in (xo, at)):
-            fail(f"{name}: non-finite kernel output at index {index}")
-    # attn is a mean of softmax rows over S, so a typical value is 1/S ~ 3e-3:
-    # its limits sit far below that (a uniform or unmasked attention misses
-    # them by orders of magnitude). In bf16 a rounding of x1 that falls the
-    # other way moves the cross query by one step, hence the wider limit.
-    if dtype == torch.float32:
-        tol = {"x_out": 1e-5, "attn": 1e-6, "cache": 1e-5}
-    else:
-        tol = {"x_out": 3e-2, "attn": 5e-5, "cache_ulps": 1.0}
+
+    def step(fn):
+        return lambda x, ck_, cv_, index, h_: fn(x, w, ck_, cv_, mk, mv, bias, index, h_)
+    errs, attn_max = chained_errors(torch, step(fused_layer_step), step(layer_step_plain),
+                                    xs, ck, cv, h, first_index, dtype)
+    tol = TOL[("K1", str(dtype).replace("torch.", ""))]
     rec = {"phase": "kernel", "name": "fused_layer_step", "config": name,
            "route": "cuda", "source": "tal_asrd_tpu_torch/csrc/layer_step.cu",
            "replaces": "tal_asrd_tpu/ops/pallas_decode.py:188",
@@ -248,47 +226,282 @@ def check_layer_step(torch, dev, name, b, d, h, s, l_buf, dtype, first_index):
     return rec
 
 
-def time_layer_step(torch, dev, b, d, h, s, l_buf, index, dtype):
-    """Kernel, plain version and bound at one serving shape. Four layers'
-    weights and cross K/V are cycled, as the decode loop does, so the cross
-    K/V (4 x 2*B*S*D elements, above the L2 size at the 2x shape) is read
-    from device memory as the real caller reads it."""
+# ---------------------------------------------------------------------------
+# Phase 3b: K1's int8 modes and K3 (stacked_decoder_step)
+# ---------------------------------------------------------------------------
+MODES = {"none": (False, False), "kv8": (True, False), "w8": (False, True),
+         "kv8+w8": (True, True)}
+N_LAYERS = 4
+K1_SOURCE = ("tal_asrd_tpu_torch/csrc/layer_step.cu", "tal_asrd_tpu/ops/pallas_decode.py:188")
+K3_SOURCE = ("tal_asrd_tpu_torch/csrc/stacked_step.cu",
+             "tal_asrd_tpu/ops/pallas_decode_stacked.py:192")
+
+
+def seeded_decoder_inputs(torch, dev, seed, b, d, s, l_buf):
+    """f32 inputs for N_LAYERS layers, made on the card from one seeded
+    generator: weights [in, out] (std 1/sqrt(in)), biases (std 0.1), ReZero
+    scalars 0.3, cross K/V [L, B, S, D] and a self cache of O(1) rows
+    [L, B, l_buf, D] (std 1), three inputs x (std 0.5) and a pad bias with
+    padded tails on some lanes."""
+    from tal_asrd_tpu_torch.ops.cuda_decode import BIAS_KEYS, WEIGHT_KEYS
+    g = torch.Generator(device=dev).manual_seed(seed)
+    f = 4 * d
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    layers = []
+    for _ in range(N_LAYERS):
+        w = {wk: randn(k, n) / k ** 0.5 for wk, (k, n) in zip(
+            WEIGHT_KEYS, ((d, 3 * d), (d, d), (d, d), (d, d), (d, f), (f, d)))}
+        w.update({bk: randn(n) * 0.1 for bk, n in zip(
+            BIAS_KEYS, (3 * d, d, d, d, f, d))})
+        w["rw"] = torch.tensor([0.3, 0.3], dtype=torch.float32, device=dev)
+        layers.append(w)
+    mask = np.zeros((b, s), bool)
+    for lane in range(0, b, 3):          # a padded tail on some lanes
+        mask[lane, s - 5 - 7 * (lane % 5):] = True
+    return {"layers": layers, "mk": randn(N_LAYERS, b, s, d), "mv": randn(N_LAYERS, b, s, d),
+            "ck": randn(N_LAYERS, b, l_buf, d), "cv": randn(N_LAYERS, b, l_buf, d),
+            "xs": randn(3, b, d) * 0.5,
+            "bias": torch.from_numpy(np.where(mask, -1e9, 0.0).astype(np.float32)).to(dev)}
+
+
+def realize(torch, inp, dtype, mode):
+    """The operands of one storage dtype and int8 mode: per-layer packs
+    (int8 + scales under w8), their stack, and the cross K/V in `dtype`
+    (int8 + [L, D] scales under kv8, quantized layer by layer over the whole
+    batch, as the serving path does)."""
     from tal_asrd_tpu_torch.ops.cuda_decode import (
-        fused_layer_step, layer_step_plain)
+        WEIGHT_KEYS, quantize_mem_kv, quantize_packed)
+    from tal_asrd_tpu_torch.ops.cuda_decode_stacked import stack_packed
+    kv8, w8 = MODES[mode]
+    packs = []
+    for w in inp["layers"]:
+        pk = {k: (t.to(dtype) if k in WEIGHT_KEYS else t) for k, t in w.items()}
+        packs.append(quantize_packed(pk) if w8 else pk)
+    mk, mv = inp["mk"].to(dtype), inp["mv"].to(dtype)
+    sk = sv = None
+    if kv8:
+        qs = [quantize_mem_kv(mk[li], mv[li]) for li in range(N_LAYERS)]
+        mk, sk, mv, sv = (torch.stack([q[i] for q in qs]) for i in range(4))
+    return {"packs": packs, "stacked": stack_packed(packs), "mk": mk, "mv": mv,
+            "sk": sk, "sv": sv, "ck": inp["ck"].to(dtype), "cv": inp["cv"].to(dtype),
+            "xs": inp["xs"].to(dtype), "bias": inp["bias"]}
 
-    rng = np.random.default_rng(SEED + 7)
-    sets, bias, xs = make_layer_inputs(torch, dev, rng, b, d, h, s, l_buf,
-                                       dtype, n_sets=4)
-    caches = [(torch.randn((b, l_buf, d), device=dev).to(dtype),
-               torch.randn((b, l_buf, d), device=dev).to(dtype)) for _ in sets]
-    x = xs[0]
 
-    def run(fn):
-        def go():
-            for (w, mk, mv), (ck, cv) in zip(sets, caches):
-                fn(x, w, ck, cv, mk, mv, bias, index, h)
-        return go
+def _layer(t, li):
+    return None if t is None else t[li]
 
-    ms = time_graph_ms(run(fused_layer_step), 25) / len(sets)
-    eager_ms = time_ms(run(fused_layer_step), 25) / len(sets)
-    plain_ms = time_ms(run(layer_step_plain), 10) / len(sets)
-    es = x.element_size()
+
+def k1_step(op, li=0):
+    """K1 and its plain version on layer li of `op`: fn(x, ck, cv, index)."""
+    from tal_asrd_tpu_torch.ops.cuda_decode import fused_layer_step, layer_step_plain
+
+    def make(fn):
+        return lambda x, ck, cv, index, h: fn(
+            x, op["packs"][li], ck, cv, op["mk"][li], op["mv"][li], op["bias"], index, h,
+            _layer(op["sk"], li), _layer(op["sv"], li))
+    return make(fused_layer_step), make(layer_step_plain)
+
+
+def k3_step(op):
+    from tal_asrd_tpu_torch.ops.cuda_decode_stacked import (
+        stacked_decoder_step, stacked_step_plain)
+
+    def make(fn):
+        return lambda x, ck, cv, index, h: fn(
+            x, op["stacked"], ck, cv, op["mk"], op["mv"], op["bias"], index, h,
+            op["sk"], op["sv"])
+    return make(stacked_decoder_step), make(stacked_step_plain)
+
+
+def chained_errors(torch, kernel, plain, xs, ck, cv, h, first_index, dtype):
+    """Three chained steps at first_index, +1, +2 through `kernel` and
+    `plain` from copies of the same caches: max |kernel - plain| of x_out,
+    attn and the caches, and in bf16 the same in bf16 steps."""
+    ck_k, cv_k, ck_p, cv_p = ck.clone(), cv.clone(), ck.clone(), cv.clone()
+    errs = {"x_out": 0.0, "attn": 0.0, "cache": 0.0}
+    if dtype == torch.bfloat16:
+        errs.update({"x_out_ulps": 0.0, "cache_ulps": 0.0})
+    attn_max = 0.0
+    for step in range(3):
+        index = first_index + step
+        xo, at, ck_k, cv_k = kernel(xs[step], ck_k, cv_k, index, h)
+        torch.cuda.synchronize()
+        xr, ar, ck_p, cv_p = plain(xs[step], ck_p, cv_p, index, h)
+        if not all(torch.isfinite(t.float()).all() for t in (xo, at)):
+            fail(f"non-finite kernel output at index {index}")
+        attn_max = max(attn_max, float(ar.max()))
+        pairs = (("x_out", xo, xr), ("attn", at, ar), ("cache", ck_k, ck_p),
+                 ("cache", cv_k, cv_p))
+        for key, a, r in pairs:
+            diff = (a.float() - r.float()).abs()
+            errs[key] = max(errs[key], float(diff.max()))
+            if key + "_ulps" in errs:
+                errs[key + "_ulps"] = max(errs[key + "_ulps"],
+                                          float((diff / bf16_ulp(r.float())).max()))
+    return errs, attn_max
+
+
+# Kernel vs plain limits, set from the readings (PERF.md). attn is a mean of
+# softmax rows over S = 340, a typical value 1/340 = 2.9e-3: its limits sit
+# far below that. int8 modes get the limits of the same kernel without them:
+# both sides consume the same int8 tensors.
+TOL = {
+    ("K1", "float32"): {"x_out": 1e-5, "attn": 1e-6, "cache": 1e-5},
+    ("K1", "bfloat16"): {"x_out": 3e-2, "attn": 5e-5, "cache_ulps": 1.0},
+    # K3 rounds the hidden to bf16 after every layer and feeds it to the next,
+    # so a rounding that falls the other way in layer l moves an input of
+    # layer l+1 by one bf16 step (0.0156 at |x| ~ 2-4), and that input moves
+    # every output and cache value of the later layers, near-zero ones too:
+    # the bf16 limits of x and the caches are absolute, a few steps of O(1)
+    # values (readings: <= 0.0234 and 0.0156). A wrong layer is off by O(0.1-1).
+    ("K3", "float32"): {"x_out": 1e-5, "attn": 1e-6, "cache": 1e-5},
+    ("K3", "bfloat16"): {"x_out": 0.0625, "attn": 5e-5, "cache": 0.0625},
+}
+
+
+def check_decode_modes(torch, dev, name, b, d, h, s, l_buf, modes_k1, modes_k3):
+    """K1 (layer 0) in `modes_k1` and K3 (all layers) in `modes_k3`, f32 and
+    bf16, at the first and the last three indices of a decode, against their
+    plain versions. Returns {(kernel, mode, dtype): record}."""
+    inp = seeded_decoder_inputs(torch, dev, SEED + 31 * b + d + l_buf, b, d, s, l_buf)
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        dt_name = str(dt).replace("torch.", "")
+        for mode in sorted(set(modes_k1) | set(modes_k3)):
+            op = realize(torch, inp, dt, mode)
+            for kern, steps, caches in (
+                    ("K1", k1_step(op), (op["ck"][0], op["cv"][0])),
+                    ("K3", k3_step(op), (op["ck"], op["cv"]))):
+                if mode not in (modes_k1 if kern == "K1" else modes_k3):
+                    continue
+                errs, attn_max = {}, 0.0
+                for first_index in (0, l_buf - 4):
+                    e, a = chained_errors(torch, *steps, op["xs"], *caches, h,
+                                          first_index, dt)
+                    errs = {k: max(v, errs.get(k, 0.0)) for k, v in e.items()}
+                    attn_max = max(attn_max, a)
+                tol = TOL[(kern, dt_name)]
+                src, repl = K1_SOURCE if kern == "K1" else K3_SOURCE
+                rec = {"phase": "kernel",
+                       "name": "fused_layer_step" if kern == "K1" else "stacked_decoder_step",
+                       "mode": mode, "config": f"{name},B={b},S={s}", "route": "cuda",
+                       "source": src, "replaces": repl,
+                       "shape": {"B": b, "D": d, "H": h, "S": s, "L": l_buf,
+                                 "n_layers": 1 if kern == "K1" else N_LAYERS},
+                       "indices": [0, 1, 2, l_buf - 4, l_buf - 3, l_buf - 2],
+                       "dtype": dt_name, "max_abs_err": errs, "tolerance": tol,
+                       "attn_max": attn_max}
+                emit(rec)
+                for key, t in tol.items():
+                    if not errs[key] <= t:
+                        fail(f"{rec['name']}[{mode}, {name}, B={b}, {dt_name}] {key} "
+                             f"differs from its plain version by {errs[key]} (> {t})")
+                out[(kern, mode, dt_name)] = rec
+    return out
+
+
+# K3 against a chain of four K1 launches on the same operands. The two
+# kernels round at different points (K1 rounds the scaled query and the
+# probabilities to bf16, K3 keeps them f32; under kv8 K1 folds the scales
+# into q and the PV sum, K3 into the K/V entries), so in bf16 they agree only
+# within a band; in f32 the points coincide up to f32 rounding.
+CHAIN_BAND = {"float32": {"x_out": 1e-4, "attn": 1e-6, "cache": 1e-4},
+              "bfloat16": {"x_out": 0.125, "attn": 2e-4, "cache": 0.125}}
+
+
+def check_k3_against_k1_chain(torch, dev, name, b, d, h, s, l_buf):
+    out = {}
+    inp = seeded_decoder_inputs(torch, dev, SEED + 77, b, d, s, l_buf)
+    for dt in (torch.float32, torch.bfloat16):
+        dt_name = str(dt).replace("torch.", "")
+        for mode in ("none", "kv8+w8"):
+            op = realize(torch, inp, dt, mode)
+            k3 = k3_step(op)[0]
+            k1s = [k1_step(op, li)[0] for li in range(N_LAYERS)]
+
+            def chain(x, ck, cv, index, h_):
+                attn = 0.0
+                for li, k1 in enumerate(k1s):
+                    x, a, _, _ = k1(x, ck[li], cv[li], index, h_)
+                    attn = attn + a
+                return x, attn / N_LAYERS, ck, cv
+
+            errs = {}
+            for first_index in (0, l_buf - 4):
+                e, _ = chained_errors(torch, k3, chain, op["xs"], op["ck"], op["cv"],
+                                      h, first_index, dt)
+                errs = {k: max(v, errs.get(k, 0.0)) for k, v in e.items()}
+            band = CHAIN_BAND[dt_name]
+            rec = {"phase": "k3_vs_k1_chain", "mode": mode, "config": f"{name},B={b},S={s}",
+                   "dtype": dt_name, "difference": errs, "band": band}
+            emit(rec)
+            for key, t in band.items():
+                if not errs[key] <= t:
+                    fail(f"stacked_decoder_step[{mode}, {dt_name}] differs from four "
+                         f"fused_layer_step launches by {errs[key]} in {key} (> {t})")
+            out[(mode, dt_name)] = errs
+    return out
+
+
+def decode_bytes_flops(b, d, s, index, es, kv8, w8, n_layers):
+    """Least bytes a decode step over n_layers layers must move, reckoned as
+    tal_asrd_tpu/utils/flops.py's decode_step_bytes does: 1 byte per int8
+    entry plus its f32 scales; each input read once, each output written
+    once. And its operations (two per multiply-add)."""
     f = 4 * d
     n_w = 4 * d * d + 2 * d * f + 2 * d * d       # wqkv+wso, wf1+wf2, wcq+wco
-    bytes_moved = (
-        n_w * es + (3 * d + 4 * d + f) * 4 + 8     # weights, biases, rw
-        + 2 * b * s * d * es                       # cross K/V
-        + 2 * b * (index + 1) * d * es             # live self cache read
-        + 2 * b * d * es                           # cache row written
-        + 2 * b * d * es                           # x in, x out
-        + 2 * b * s * 4)                           # pad bias in, attn out
-    flops = 2.0 * b * (n_w + 2 * (index + 1) * d + 2 * s * d)
-    bound_ms, bound_by = bound(bytes_moved, flops,
-                               str(dtype).replace("torch.", ""))
+    n_out = 3 * d + 4 * d + f                     # biases (and w8 scales)
+    per_layer = (
+        n_w * (1 if w8 else es) + (n_out * 4 if w8 else 0)    # weights (+ scales)
+        + n_out * 4 + 8                                        # biases, rw
+        + 2 * b * s * d * (1 if kv8 else es) + (2 * d * 4 if kv8 else 0)  # cross K/V
+        + 2 * b * (index + 1) * d * es                         # live self cache read
+        + 2 * b * d * es)                                      # cache row written
+    bytes_moved = (n_layers * per_layer
+                   + 2 * b * d * es                            # x in, x out
+                   + 2 * b * s * 4)                            # pad bias in, attn out
+    flops = 2.0 * b * n_layers * (n_w + 2 * (index + 1) * d + 2 * s * d)
+    return bytes_moved, flops
+
+
+def time_decode(torch, dev, kern, mode, b, d, h, s, l_buf, index, dtype):
+    """Kernel, plain version and bound at one serving shape. K1 cycles the
+    four layers' operands, as the decode loop does; K3 takes them all in one
+    launch. The cross K/V (above the L2 size at 2x) thus comes from device
+    memory, as it does for the real caller."""
+    inp = seeded_decoder_inputs(torch, dev, SEED + 7, b, d, s, l_buf)
+    op = realize(torch, inp, dtype, mode)
+    x = op["xs"][0]
+    if kern == "K1":
+        steps = [k1_step(op, li) for li in range(N_LAYERS)]
+        caches = [(op["ck"][li], op["cv"][li]) for li in range(N_LAYERS)]
+
+        def run(which):
+            def go():
+                for st, (ck, cv) in zip(steps, caches):
+                    st[which](x, ck, cv, index, h)
+            return go
+        per, n_layers = N_LAYERS, 1
+    else:
+        st = k3_step(op)
+
+        def run(which):
+            return lambda: st[which](x, op["ck"], op["cv"], index, h)
+        per, n_layers = 1, N_LAYERS
+    ms = time_graph_ms(run(0), 25) / per
+    eager_ms = time_ms(run(0), 25) / per
+    plain_ms = time_ms(run(1), 10) / per
+    kv8, w8 = MODES[mode]
+    bytes_moved, flops = decode_bytes_flops(b, d, s, index, x.element_size(), kv8, w8,
+                                            n_layers)
+    bound_ms, bound_by = bound(bytes_moved, flops, str(dtype).replace("torch.", ""))
     return {"ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "timed_shape": {"B": b, "D": d, "H": h, "S": s, "L": l_buf,
-                            "index": index},
+            "timed_shape": {"B": b, "D": d, "H": h, "S": s, "L": l_buf, "index": index,
+                            "n_layers": n_layers},
             "bytes": bytes_moved}
 
 
@@ -379,17 +592,24 @@ def profile_generate(torch, tag, gen, args):
 
 
 def serve(torch, dev, tag, model, audio_np, max_new, greedy_b, beam_b,
-          trace=False):
+          trace=False, **decoder_flags):
+    """One serving configuration: `decoder_flags` (kv8, w8, stacked) go to
+    FusedASRDecoder; beam_b None skips the beam-5 leg."""
     from tal_asrd_tpu_torch.decode.beam import BeamSearchSpec, make_generate_fn
     from tal_asrd_tpu_torch.decode.fused_step import FusedASRDecoder
     from tal_asrd_tpu_torch.ops.cuda_decode import fused_layer_step
+    from tal_asrd_tpu_torch.ops.cuda_decode_stacked import stacked_decoder_step
     from tal_asrd_tpu_torch.ops.cuda_kernels import fused_logmel_project
 
+    counters = {"fused_layer_step": fused_layer_step,
+                "stacked_decoder_step": stacked_decoder_step,
+                "fused_logmel_project": fused_logmel_project}
     cfg = model.cfg
-    fused = FusedASRDecoder(model)
+    fused = FusedASRDecoder(model, **decoder_flags)
     lens = np.full((audio_np.shape[0],), audio_np.shape[1], np.int64)
     out = {"phase": tag, "model_type": cfg.model_type, "d_decoder": cfg.d_decoder,
            "num_tokens": cfg.num_tokens, "dtype": str(model.dtype).replace("torch.", ""),
+           "decoder_flags": decoder_flags,
            "window_samples": int(audio_np.shape[1]), "max_new_tokens": max_new}
 
     def spec(k):
@@ -410,12 +630,10 @@ def serve(torch, dev, tag, model, audio_np, max_new, greedy_b, beam_b,
     gen_u = make_generate_fn(model, spec(1), device=dev)
     run(gen_f, greedy_b)                                  # warm-up (cuDNN, caches)
     # The main path's run: counts set to 0 just before it, read just after.
-    fused_layer_step.launches = 0
-    fused_logmel_project.launches = 0
+    for fn in counters.values():
+        fn.launches = 0
     res_f, secs_f = run(gen_f, greedy_b)
-    launches_per_generate = {
-        "fused_layer_step": fused_layer_step.launches,
-        "fused_logmel_project": fused_logmel_project.launches}
+    launches_per_generate = {name: fn.launches for name, fn in counters.items()}
     res_u, secs_u = run(gen_u, greedy_b)
     if trace:
         profile_generate(torch, tag + ":greedy_fused", gen_f,
@@ -430,11 +648,15 @@ def serve(torch, dev, tag, model, audio_np, max_new, greedy_b, beam_b,
             not bool(torch.isfinite(res_f["scores"]).all()) or \
             tok_f.min() < 0 or tok_f.max() >= cfg.num_tokens:
         fail(f"{tag}: malformed greedy output")
-    expected_k1 = cfg.n_decoder_layers * (p + max_new - 1)
-    if launches_per_generate != {"fused_layer_step": expected_k1,
-                                 "fused_logmel_project": 1}:
-        fail(f"{tag}: launches per generate {launches_per_generate}, expected "
-             f"fused_layer_step={expected_k1}, fused_logmel_project=1")
+    # one decode step per token but the last; K1 once per layer and step, or
+    # K3 once per step (and K1 never) in the stacked configurations
+    steps = p + max_new - 1
+    stacked = decoder_flags.get("stacked", False)
+    expected = {"fused_layer_step": 0 if stacked else cfg.n_decoder_layers * steps,
+                "stacked_decoder_step": steps if stacked else 0,
+                "fused_logmel_project": 1}
+    if launches_per_generate != expected:
+        fail(f"{tag}: launches per generate {launches_per_generate}, expected {expected}")
     div = first_divergence(tok_f, tok_u)
     out["greedy"] = {
         "batch": greedy_b,
@@ -476,6 +698,11 @@ def serve(torch, dev, tag, model, audio_np, max_new, greedy_b, beam_b,
         fail(f"{tag}: greedy scores disagree with teacher-forced rescoring "
              f"by {score_gap}")
 
+    if beam_b is None:
+        out["launches_whole_phase"] = {name: fn.launches for name, fn in counters.items()}
+        emit(out)
+        return out
+
     # --- beam 5 through the fused path (exercises the cache reorder) ---------
     gen_b = make_generate_fn(model, spec(5), decoder=fused, device=dev)
     res_b, secs_b = run(gen_b, beam_b)
@@ -499,8 +726,7 @@ def serve(torch, dev, tag, model, audio_np, max_new, greedy_b, beam_b,
         fail(f"{tag}: beam-5 scores disagree with teacher-forced rescoring "
              f"by {gap_b}")
     out["launches_whole_phase"] = {            # warm-up excluded
-        "fused_layer_step": fused_layer_step.launches,
-        "fused_logmel_project": fused_logmel_project.launches}
+        name: fn.launches for name, fn in counters.items()}
     emit(out)
     return out
 
@@ -610,24 +836,66 @@ def main() -> None:
                             rec["max_abs_err"][key] = max(rec["max_abs_err"][key], v)
                     k1[name] = rec
     # timings at the serving shapes: the greedy lanes, last step of the run
-    k1["2x"].update(time_layer_step(torch, dev, 32, 512, 4, 340, 97, 95, bf16))
-    k1["1x"].update(time_layer_step(torch, dev, 8, 256, 4, 340, 65, 63, bf16))
+    k1["2x"].update(time_decode(torch, dev, "K1", "none", 32, 512, 4, 340, 97, 95, bf16))
+    k1["1x"].update(time_decode(torch, dev, "K1", "none", 8, 256, 4, 340, 65, 63, bf16))
     emit({"phase": "kernel_timing", "name": "fused_layer_step", "card": card,
           "note": "ms = CUDA-graph replay (device time); eager_ms = eager loop (includes the host)",
           **{name: {k: k1[name][k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms",
                                               "bound_by", "timed_shape")}
              for name in ("2x", "1x")}})
+
+    # ---- 3b. K1's int8 modes and K3 against their plain versions, at the -----
+    # shapes the new serving configurations give them: greedy lanes (2x B=32,
+    # L=97; 1x B=8, L=65) and beam-5 lanes (B=40), S=340
+    k1_modes, k3_modes = ("kv8", "w8", "kv8+w8"), ("none", "kv8", "w8", "kv8+w8")
+    checks = {}
+    for name, d, b, l_buf in (("2x", 512, 32, 97), ("1x", 256, 8, 65),
+                              ("2x", 512, 40, 97), ("1x", 256, 40, 65)):
+        for key, rec in check_decode_modes(torch, dev, name, b, d, 4, 340, l_buf,
+                                           k1_modes, k3_modes).items():
+            if b != 40:                      # the greedy lanes: the kernels line's errors
+                checks[(name,) + key] = rec
+    chain = check_k3_against_k1_chain(torch, dev, "2x", 32, 512, 4, 340, 97)
+    # timings at the greedy serving shapes, last step of the run
+    timed = {}
+    for name, b, d, l_buf in (("2x", 32, 512, 97), ("1x", 8, 256, 65)):
+        for kern, modes in (("K1", k1_modes), ("K3", ("none", "kv8+w8"))):
+            for mode in modes:
+                timed[(name, kern, mode)] = time_decode(
+                    torch, dev, kern, mode, b, d, 4, 340, l_buf, l_buf - 2, bf16)
+    emit({"phase": "kernel_timing", "name": "int8 modes and stacked_decoder_step",
+          "card": card, "note": "ms per launch, CUDA-graph replay; K3 is one launch "
+                                "for all four layers, beside it 4 x K1's time",
+          "k3_vs_k1_chain": {f"{m},{dt}": e for (m, dt), e in chain.items()},
+          **{f"{name},{kern},{mode}": {
+              k: t[k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms", "bound_by",
+                                "timed_shape")} for (name, kern, mode), t in timed.items()},
+          "four_k1_ms": {name: 4 * k1[name]["ms"] for name in ("2x", "1x")},
+          "four_k1_kv8_w8_ms": {name: 4 * timed[(name, "K1", "kv8+w8")]["ms"]
+                                for name in ("2x", "1x")}})
     if args.phases == "kernels":
         print("chip_smoke: kernel checks passed (serving phases skipped)", flush=True)
         return
 
     # ---- 4-5. the serving path --------------------------------------------------
+    # Each configuration: greedy B=32 x 96 tokens (2x) / B=8 x 64 (1x) through
+    # `make_generate_fn`, fused against unfused in lockstep, and beam 5 at B=8
+    # (the kv8-only and w8-only configurations run greedy only).
     rng = np.random.default_rng(SEED)
     model_2x = build_2x(torch, dev)
     audio_2x = (rng.standard_normal((32, WINDOW_SAMPLES)) * 0.1).astype(np.float32)
-    launches_2x = serve(torch, dev, "serve_2x", model_2x, audio_2x, max_new=96,
-                        greedy_b=32, beam_b=8, trace=args.profile
-                        )["greedy"]["launches_per_generate"]
+    launches = {}
+    for config, flags, beam_b in (
+            ("2x", {}, 8),
+            ("2x_kv8", {"kv8": True}, None),
+            ("2x_w8", {"w8": True}, None),
+            ("2x_kv8_w8", {"kv8": True, "w8": True}, 8),
+            ("2x_stacked", {"stacked": True}, 8),
+            ("2x_stacked_kv8_w8", {"stacked": True, "kv8": True, "w8": True}, 8)):
+        launches[config] = serve(torch, dev, "serve_" + config, model_2x, audio_2x,
+                                 max_new=96, greedy_b=32, beam_b=beam_b,
+                                 trace=args.profile, **flags
+                                 )["greedy"]["launches_per_generate"]
     del model_2x
     torch.cuda.empty_cache()
 
@@ -635,31 +903,45 @@ def main() -> None:
     if n_leaves != 151:
         fail(f"checkpoint: {n_leaves} leaves placed, expected 151")
     audio_1x = speechlike_audio(rng, 8, WINDOW_SAMPLES)
-    launches_1x = serve(torch, dev, "serve_1x_checkpoint", model_1x, audio_1x,
-                        max_new=64, greedy_b=8, beam_b=8, trace=args.profile
-                        )["greedy"]["launches_per_generate"]
+    for config, flags in (("1x", {}),
+                          ("1x_stacked_kv8_w8", {"stacked": True, "kv8": True, "w8": True})):
+        tag = "serve_1x_checkpoint" + config[2:]
+        launches[config] = serve(torch, dev, tag, model_1x, audio_1x, max_new=64,
+                                 greedy_b=8, beam_b=8, trace=args.profile, **flags
+                                 )["greedy"]["launches_per_generate"]
 
-    # ---- 6. every kernel of each model's path, with its launches in that ------
-    # model's one timed fused greedy generate (counts zeroed just before it)
-    if min(*launches_2x.values(), *launches_1x.values()) <= 0:
-        fail(f"a kernel of the serving path was never launched: "
-             f"2x {launches_2x}, 1x {launches_1x}")
-
-    def entry(config, rec, launches, err):
-        return {"name": rec["name"], "config": config, "route": rec["route"],
-                "source": rec["source"],
-                "replaces": rec["replaces"], "launches": launches,
-                "max_abs_err": err, "errors": rec["max_abs_err"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+    # ---- 6. every kernel of each configuration's path, with its launches in ---
+    # that configuration's one timed fused greedy generate (counts zeroed just
+    # before it)
+    def entry(config, rec, launches_n, err, mode=None):
+        return {"name": rec["name"], "mode": mode or rec.get("mode", "none"),
+                "config": config, "route": rec["route"], "source": rec["source"],
+                "replaces": rec["replaces"], "launches": launches_n,
+                "max_abs_err": err, "errors": rec["max_abs_err"], "ms": rec["ms"],
+                "plain_ms": rec["plain_ms"],
                 "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
                 "library_ms": rec["library_ms"], "eager_ms": rec.get("eager_ms"),
                 "shape": rec.get("timed_shape", rec["shape"]), "dtype": rec["dtype"]}
 
-    emit({"kernels": [
-        entry(name, rec, launches[rec["name"]], err)
-        for name, launches in (("2x", launches_2x), ("1x", launches_1x))
-        for rec, err in ((k1[name], k1[name]["max_abs_err"]["x_out"]),
-                         (k2[name], k2[name]["max_abs_err"]))
-    ], "card": card, "seconds_total": time.perf_counter() - t_start})
+    entries = []
+    for config, kern, mode in (
+            ("2x", "K1", "none"), ("1x", "K1", "none"),
+            ("2x_kv8", "K1", "kv8"), ("2x_w8", "K1", "w8"), ("2x_kv8_w8", "K1", "kv8+w8"),
+            ("2x_stacked", "K3", "none"), ("2x_stacked_kv8_w8", "K3", "kv8+w8"),
+            ("1x_stacked_kv8_w8", "K3", "kv8+w8")):
+        model = config[:2]
+        if kern == "K1" and mode == "none":       # the records of phase 3
+            rec = k1[model]
+        else:
+            rec = dict(checks[(model, kern, mode, "bfloat16")], **timed[(model, kern, mode)])
+        entries.append(entry(config, rec, launches[config][rec["name"]],
+                             rec["max_abs_err"]["x_out"], mode))
+        entries.append(entry(config, k2[model], launches[config]["fused_logmel_project"],
+                             k2[model]["max_abs_err"]))
+    never = [(e["config"], e["name"]) for e in entries if e["launches"] <= 0]
+    if never:
+        fail(f"a kernel of a serving path was never launched: {never}")
+    emit({"kernels": entries, "card": card, "seconds_total": time.perf_counter() - t_start})
 
     # ---- 7. the contract line ---------------------------------------------------
     print(json.dumps({"ok": True, "device": {

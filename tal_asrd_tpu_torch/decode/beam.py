@@ -7,7 +7,8 @@ the device; the host reads one flag per step (are all slots done?).
   * score accumulation + top-k over [B, K*V], with first-step fan-out
     expressed as -1e30 initial scores on beams 1..K-1;
   * beam reordering gathers the self-attention KV caches along the flat beam
-    axis (skipped at K = 1, where it is the identity);
+    axis — the model's `cache_beam_axis`, 0 unless it says otherwise — and
+    is skipped at K = 1, where it is the identity;
   * retirement semantics are the reference's: `done` flags are per SLOT and
     are NOT reordered with the beams, so a slot that produced EOS stays
     masked for the rest of the search — including the quirk that a live
@@ -87,6 +88,9 @@ def beam_search(
             None if mask is None else mask.repeat_interleave(k, dim=0)),
     }
     state = model.init_decode_state(enc, bk, l_buf)
+    # The stacked fused decoder keeps its caches [L, B*K, cap, D]: the beam
+    # axis is 1 there (a gather along 0 would reorder layers, not beams).
+    cache_axis = getattr(model, "cache_beam_axis", 0)
 
     tokens = torch.zeros((bk, l_buf), dtype=torch.long, device=device)
     tokens[:, :p] = prime.repeat_interleave(k, dim=0)
@@ -123,10 +127,7 @@ def beam_search(
         if k > 1:
             tokens = tokens.index_select(0, flat_beams)
             state = dict(state)
-            state["caches"] = tuple(
-                {name: t.index_select(0, flat_beams)
-                 for name, t in cache.items()}
-                for cache in state["caches"])
+            state["caches"] = _gather(state["caches"], cache_axis, flat_beams)
         tokens[:, p + step] = best_tok.reshape(-1)
 
         # Retirement: slots whose chosen token is EOS and that are not already
@@ -168,6 +169,15 @@ def beam_search(
         "scores": fin_norm[rows, best],
         "found": fin_valid.any(dim=1),
     }
+
+
+def _gather(tree, axis: int, index: torch.Tensor):
+    """index_select(axis, index) on every tensor of a tree of tuples / dicts."""
+    if isinstance(tree, dict):
+        return {key: _gather(t, axis, index) for key, t in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_gather(t, axis, index) for t in tree)
+    return tree.index_select(axis, index)
 
 
 def make_generate_fn(model, spec: BeamSearchSpec, decoder=None,

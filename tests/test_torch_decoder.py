@@ -1,6 +1,7 @@
 """Parity of the PyTorch port's unfused decoder and model with the JAX
 package (CPU, float32, tiny size): teacher-forced logits, a cached
 decode_step chain with a pad mask, prefill, and the padding mask itself."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -27,8 +28,8 @@ def pair():
     audio, lens = tiny_audio(3)
     rng = np.random.default_rng(5)
     y = rng.integers(0, tmodel.cfg.num_tokens, size=(3, N_STEPS)).astype(np.int32)
-    j_enc = jmodel.apply(variables, jnp.asarray(audio), jnp.asarray(lens), False,
-                         method=JASRModel.encode)
+    j_enc = jax.jit(lambda v, a, n: jmodel.apply(v, a, n, False, method=JASRModel.encode))(
+        variables, jnp.asarray(audio), jnp.asarray(lens))
     with torch.no_grad():
         t_enc = tmodel.encode(torch.from_numpy(audio), torch.from_numpy(lens))
     return dict(jmodel=jmodel, variables=variables, tmodel=tmodel, y=y,
@@ -74,12 +75,12 @@ def test_decode_step_chain_matches_jax(pair):
     jm, tm, variables = pair["jmodel"], pair["tmodel"], pair["variables"]
     j_state = jm.apply(variables, pair["j_enc"], 3, N_STEPS + 2,
                        method=JASRModel.init_decode_state)
+    j_step = jax.jit(lambda v, tok, st: jm.apply(v, tok, st, method=JASRModel.decode_step))
     with torch.no_grad():
         t_state = tm.init_decode_state(pair["t_enc"], 3, N_STEPS + 2)
         for step in range(N_STEPS):
             tok = pair["y"][:, step:step + 1]
-            ref_logits, _, ref_attn, j_state = jm.apply(
-                variables, jnp.asarray(tok), j_state, method=JASRModel.decode_step)
+            ref_logits, _, ref_attn, j_state = j_step(variables, jnp.asarray(tok), j_state)
             logits, spk, attn, t_state = tm.decode_step(
                 torch.from_numpy(tok).long(), t_state)
             assert spk is None and t_state["index"] == step + 1

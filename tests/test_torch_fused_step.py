@@ -1,6 +1,8 @@
 """Parity of the port's fused layer step (its plain version, which is what a
 CPU tensor gets) with the Pallas kernel in interpret mode, and of
 FusedASRDecoder.decode_step / decode_prefill with the JAX FusedASRDecoder (CPU, f32)."""
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -73,12 +75,13 @@ def test_plain_layer_step_matches_pallas_interpret(layer_pair):
     t_ck = torch.zeros((B, L, D))
     t_cv = torch.zeros((B, L, D))
     mk, mv, bias = (torch.from_numpy(p[k]) for k in ("mk", "mv", "bias"))
+    j_step = jax.jit(functools.partial(j_fused_layer_step, n_head=H, interpret=True))
     launches = fused_layer_step.launches
     for step in range(3):
-        ref = j_fused_layer_step(
+        ref = j_step(
             jnp.asarray(p["xs"][step]), jw, j_ck, j_cv, jnp.asarray(p["mk"]),
             jnp.asarray(p["mv"]), jnp.asarray(p["bias"]),
-            jnp.asarray(step, jnp.int32), n_head=H, interpret=True)
+            jnp.asarray(step, jnp.int32))
         j_ck, j_cv = ref[2], ref[3]
         with torch.no_grad():
             out = fused_layer_step(torch.from_numpy(p["xs"][step]), tw, t_ck, t_cv,
@@ -136,16 +139,19 @@ def test_bf16_plain_layer_step_rounds_like_storage(layer_pair):
 
 
 def test_int8_modes_are_not_ported(layer_pair):
+    """The int8 modes are ported now (tests/test_torch_int8.py): what the
+    wrapper still refuses is an int8 operand without its scales and an index
+    outside the cache."""
     p = layer_pair
     tw = pack_layer(p["tlayer"], dtype=torch.float32)
     x = torch.from_numpy(p["xs"][0])
     ck, cv = torch.zeros(B, L, D), torch.zeros(B, L, D)
     mk, mv, bias = (torch.from_numpy(p[k]) for k in ("mk", "mv", "bias"))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         fused_layer_step(x, tw, ck, cv, mk.to(torch.int8), mv.to(torch.int8), bias, 0,
-                         n_head=H, mem_k_scale=torch.ones(D), mem_v_scale=torch.ones(D))
+                         n_head=H)
     w8 = dict(tw, wqkv=tw["wqkv"].to(torch.int8))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):                  # int8 and float weights mixed
         fused_layer_step(x, w8, ck, cv, mk, mv, bias, 0, n_head=H)
     with pytest.raises(ValueError):
         fused_layer_step(x, tw, ck, cv, mk, mv, bias, L, n_head=H)   # index past the cache
@@ -167,7 +173,8 @@ def test_fused_decoder_decode_step_matches_jax(decoder_pair):
     jdec = JFusedASRDecoder(jmodel, interpret=True)
     tdec = FusedASRDecoder(tmodel)
     assert len(tdec.packed) == 4                       # packed once, at construction
-    j_state = jdec.init_decode_state(variables, j_enc, 3, 8)
+    j_state = jax.jit(lambda v, e: jdec.init_decode_state(v, e, 3, 8))(variables, j_enc)
+    j_step = jax.jit(lambda v, tok, st: jdec.decode_step(v, tok, st))
     rng = np.random.default_rng(2)
     toks = rng.integers(0, tmodel.cfg.num_tokens, size=(3, 3)).astype(np.int32)
     with torch.no_grad():
@@ -175,8 +182,7 @@ def test_fused_decoder_decode_step_matches_jax(decoder_pair):
         u_state = tmodel.init_decode_state(t_enc, 3, 8)
         for step in range(3):
             tok = toks[:, step:step + 1]
-            ref_logits, _, ref_attn, j_state = jdec.decode_step(
-                variables, jnp.asarray(tok), j_state)
+            ref_logits, _, ref_attn, j_state = j_step(variables, jnp.asarray(tok), j_state)
             logits, spk, attn, t_state = tdec.decode_step(torch.from_numpy(tok).long(), t_state)
             u_logits, _, u_attn, u_state = tmodel.decode_step(
                 torch.from_numpy(tok).long(), u_state)
@@ -197,8 +203,9 @@ def test_fused_decoder_prefill_matches_jax(decoder_pair):
     tdec = FusedASRDecoder(tmodel)
     y = np.random.default_rng(4).integers(0, 64, size=(3, 4)).astype(np.int32)
     j_kvs = jdec.precompute_mem_kvs(variables, j_enc["encoder_out"])
-    ref_logits, ref_attn, ref_caches = jdec.decode_prefill(
-        variables, jnp.asarray(y), j_kvs, j_enc["encoder_padding_mask"], 9)
+    ref_logits, ref_attn, ref_caches = jax.jit(
+        lambda v, tok, kvs, m: jdec.decode_prefill(v, tok, kvs, m, 9))(
+        variables, jnp.asarray(y), j_kvs, j_enc["encoder_padding_mask"])
     with torch.no_grad():
         kvs = tdec.precompute_mem_kvs(t_enc["encoder_out"])
         logits, attn, caches = tdec.decode_prefill(
@@ -213,8 +220,18 @@ def test_fused_decoder_prefill_matches_jax(decoder_pair):
 
 @pytest.mark.parametrize("flag", ["kv8", "w8", "stacked"])
 def test_fused_decoder_unported_modes_raise(decoder_pair, flag):
-    with pytest.raises(NotImplementedError):
-        FusedASRDecoder(decoder_pair[2], **{flag: True})
+    """The three flags that raised before their kernels were ported now build
+    a decoder whose state has the mode's layout (their parity with the JAX
+    decoder is in tests/test_torch_int8.py and tests/test_torch_stacked.py)."""
+    dec = FusedASRDecoder(decoder_pair[2], **{flag: True})
+    with torch.no_grad():
+        state = dec.init_decode_state(decoder_pair[4], 3, 8)
+    if flag == "stacked":
+        assert dec.cache_beam_axis == 1 and state["caches"]["k"].shape == (4, 3, 8, 32)
+    elif flag == "kv8":
+        assert state["mem_kvs"][0]["k"].dtype == torch.int8 and "sk" in state["mem_kvs"][0]
+    else:
+        assert dec.packed[0]["wqkv"].dtype == torch.int8 and "sqkv" in dec.packed[0]
 
 
 def test_pack_decoder_packs_every_layer(decoder_pair):

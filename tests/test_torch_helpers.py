@@ -55,8 +55,10 @@ def tiny_model_pair(seed=0, **overrides):
     kw = dict(TINY, **overrides)
     jmodel = JASRModel(JModelConfig(conv_impl="xla", **kw), dtype=jnp.float32)
     audio, lens = tiny_audio(2)
-    variables = jmodel.init({"params": jax.random.PRNGKey(0)}, jnp.asarray(audio),
-                            jnp.zeros((2, 4), jnp.int32), jnp.asarray(lens))
+    # only the tree's structure and shapes are needed: seeded_like refills it
+    variables = jax.eval_shape(lambda: jmodel.init(
+        {"params": jax.random.PRNGKey(0)}, jnp.asarray(audio),
+        jnp.zeros((2, 4), jnp.int32), jnp.asarray(lens)))
     params = seeded_like(variables["params"], seed)
     tmodel = ASRModel(ModelConfig(**kw), dtype=torch.float32, device="cpu")
     load_into(tmodel, {"params": to_numpy_tree(params)})
