@@ -3,25 +3,35 @@
 
     python3 chip_smoke.py            # everything, needs one card
     python3 chip_smoke.py --phases kernels   # build + kernel checks only
+    python3 chip_smoke.py --phases train     # ... + the training phases, no serving
 
 Builds the port's CUDA kernels from tal_asrd_tpu_torch/csrc/ with nvcc, holds
-each against its plain PyTorch version on the card at the serving path's
-shapes — the layer step K1 in bf16/f32 storage and with int8 cross K/V (kv8),
-int8 weights (w8) or both, the stacked all-layers step K3 in each of those
-modes, K3 against a chain of four K1 launches, the log-mel projection K2 —
-and times each. Then it drives the serving path (`make_generate_fn`:
-log-mel -> TDS encoder -> fused decoder step -> beam search) at full width
-through each decoder configuration — the `2x` model (seeded weights) per
-layer, kv8, w8, kv8+w8, stacked and stacked kv8+w8; the `1x` model (the
-tracked checkpoint accuracy_release/avg_last_3.bf16.msgpack) per layer and
-stacked kv8+w8 — and holds each against the unfused decoder.
+each against its plain PyTorch version on the card at the shapes its paths
+give it — the layer step K1 in bf16/f32 storage and with int8 cross K/V
+(kv8), int8 weights (w8) or both, the stacked all-layers step K3 in each of
+those modes, K3 against a chain of four K1 launches, the log-mel projection
+K2, SpecAugment K4 (bit for bit) — and times each. Then it drives the
+serving path (`make_generate_fn`: log-mel -> TDS encoder -> fused decoder
+step -> beam search) at full width through each decoder configuration — the
+`2x` model (seeded weights) per layer, kv8, w8, kv8+w8, stacked and stacked
+kv8+w8; the `1x` model (the tracked checkpoint
+accuracy_release/avg_last_3.bf16.msgpack) per layer and stacked kv8+w8 — and
+holds each against the unfused decoder.
+
+Then it drives the training path (`ASRSystem` + `Trainer.fit`: log-mel with
+K2 -> SpecAugment, kernel K4 -> TDS -> decoder -> masked cross entropy ->
+LAMB): `train_2x` trains the seeded 2x model at full width and depth for 10
+steps at TrainConfig's defaults (B=64 windows of 20 s, f32 parameters, bf16
+compute) and holds bf16 against f32 and grad_acc=2 against 1;
+`train_1x_checkpoint` takes 2 steps from the tracked checkpoint, saves and
+reloads it, and decodes with both sets of weights through K1.
 
 Prints one JSON object per line: `device`, one `kernel` line per check,
 `k3_vs_k1_chain`, `kernel_timing`, one `serve_*` line per configuration,
-`kernels` (every kernel of each configuration's path with its launch count in
-that configuration's one timed fused greedy generate, its error against the
-plain version, its time, the plain version's, a library call's where one
-exists, and the least time the card could take), and last
+`train_2x`, `train_1x_checkpoint`, `kernels` (every kernel of each path with
+its launch count in that path's one timed run, its error against the plain
+version, its time, the plain version's, a library call's where one exists,
+and the least time the card could take), and last
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 Exits non-zero, without that line, if there is no CUDA device, if a kernel
 does not build or launch, or if any comparison misses its tolerance.
@@ -33,6 +43,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -100,8 +111,8 @@ def bound(bytes_moved: float, flops: float, dtype_name: str):
 # ---------------------------------------------------------------------------
 # Phase 2: fused_logmel_project
 # ---------------------------------------------------------------------------
-def check_logmel(torch, dev, b):
-    """Kernel vs plain version and timings at N = b x 2857 frames."""
+def check_logmel(torch, dev, b, samples=WINDOW_SAMPLES):
+    """Kernel vs plain version and timings at N = b x num_frames(samples)."""
     from tal_asrd_tpu_torch.core.config import FrontendConfig
     from tal_asrd_tpu_torch.ops.cuda_kernels import (
         fused_logmel_project, logmel_project_plain)
@@ -110,7 +121,7 @@ def check_logmel(torch, dev, b):
     cfg = FrontendConfig()
     rng = np.random.default_rng(SEED)
     audio = torch.from_numpy(
-        (rng.standard_normal((b, WINDOW_SAMPLES)) * 0.1).astype(np.float32)).to(dev)
+        (rng.standard_normal((b, samples)) * 0.1).astype(np.float32)).to(dev)
     power = power_spectrogram(audio, cfg)
     n = power.shape[0] * power.shape[1]
     power = power.reshape(n, power.shape[2]).contiguous()
@@ -146,6 +157,85 @@ def check_logmel(torch, dev, b):
     if not (np.isfinite(err) and max(err, err_r) <= tol):
         fail(f"fused_logmel_project differs from its plain version by "
              f"{max(err, err_r)} (> {tol})")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# Phase 2b: SpecAugment (K4)
+# ---------------------------------------------------------------------------
+TRAIN_SAMPLES = 320_000            # 20 s windows (TrainConfig.max_secs) -> 2001 frames
+K4_SOURCE = ("tal_asrd_tpu_torch/csrc/specaug.cu", "tal_asrd_tpu/ops/pallas_kernels.py:121")
+
+
+def check_specaug(torch, dev, b, edge_cases=False):
+    """K4 against its plain version, bit for bit, at a trainer's shape
+    [b, 2001, 80] with the default config; with `edge_cases` also at
+    [3, 37, 80] (T below the time mask parameter; there through the backward
+    pass too) and with zero masks (the wrapper passes the input through; the
+    kernel launched with zero masks copies it). Then its time at [b, 2001, 80]
+    beside its bound, reckoned from this draw, and a plain `torch.where` with
+    the mask given."""
+    from tal_asrd_tpu_torch.core.config import SpecAugmentConfig
+    from tal_asrd_tpu_torch.ops.cuda_specaug import launch_specaug
+    from tal_asrd_tpu_torch.ops.specaug import (
+        draw_seeds, spec_augment_seeded, specaug_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + b)
+    cfg, off = SpecAugmentConfig(), SpecAugmentConfig(num_freq_masks=0, num_time_masks=0)
+    n_frames = 1 + TRAIN_SAMPLES // 160
+    cases = [("trainer", (b, n_frames, 80), cfg)]
+    if edge_cases:
+        cases += [("short_T", (3, 37, 80), cfg), ("zero_masks", (b, n_frames, 80), off)]
+    checks = {}
+    for name, shape, c in cases:
+        spec = torch.randn(shape, device=dev, generator=gen)
+        seeds = draw_seeds(shape[0], gen, dev)
+        out = spec_augment_seeded(seeds, spec, c)
+        torch.cuda.synchronize()
+        ref = specaug_plain(seeds, spec, c)
+        checks[name] = {"bit_equal": bool(torch.equal(out, ref)),
+                        "max_abs_err": float((out - ref).abs().max()),
+                        "masked_share": float((ref == 0).float().mean())}
+        if name == "trainer":
+            timed = spec, seeds
+        if name == "zero_masks":
+            raw = launch_specaug(seeds, spec, 27, 0, 100, 0)
+            checks[name]["kernel_copy_bit_equal"] = bool(torch.equal(raw, spec))
+        if name == "short_T":
+            s = spec.clone().requires_grad_(True)
+            g = torch.randn_like(s)
+            spec_augment_seeded(seeds, s, c).backward(g)
+            checks[name]["backward_bit_equal"] = bool(torch.equal(s.grad, specaug_plain(seeds, g, c)))
+    bad = [(n, k) for n, r in checks.items() for k, v in r.items()
+           if k.endswith("equal") and not v]
+    spec, seeds = timed
+    t, m = spec.shape[1:]
+    keep = specaug_plain(seeds, torch.ones_like(spec), cfg) != 0
+    ms = time_ms(lambda: spec_augment_seeded(seeds, spec, cfg), 20)
+    graph_ms = time_graph_ms(lambda: launch_specaug(
+        seeds, spec, cfg.freq_mask_param, cfg.num_freq_masks, cfg.time_mask_param,
+        cfg.num_time_masks), 20)
+    plain_ms = time_ms(lambda: specaug_plain(seeds, spec, cfg), 20)
+    zero = torch.zeros((), device=dev)
+    where_ms = time_ms(lambda: torch.where(keep, spec, zero), 20)
+    # the least the function must move: one write of every value and one read
+    # of each value it keeps (this draw's spans); one select per value
+    kept = int(keep.sum())
+    bound_ms, bound_by = bound(4.0 * (spec.numel() + kept), float(spec.numel()), "float32")
+    rec = {"phase": "kernel", "name": "spec_augment", "route": "cuda",
+           "source": K4_SOURCE[0], "replaces": K4_SOURCE[1],
+           "shape": {"B": b, "T": t, "M": m}, "dtype": "float32",
+           "checks": checks, "tolerance": "bit-equal", "kept_share": kept / spec.numel(),
+           "max_abs_err": max(r["max_abs_err"] for r in checks.values()),
+           "ms": ms, "graph_ms": graph_ms, "plain_ms": plain_ms, "where_ms": where_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+           "note": "ms: 20 eager calls (CUDA events); graph_ms: CUDA-graph replay of the "
+                   "launch; bound: 4 bytes x (every value written + each kept value "
+                   "read); where_ms: torch.where(keep, spec, 0) with the mask given, "
+                   "for scale (no PyTorch call draws the spans)"}
+    emit(rec)
+    if bad:
+        fail(f"spec_augment differs from its plain version: {bad}")
     return rec
 
 
@@ -559,7 +649,7 @@ def first_divergence(a, b):
     return [int(np.argmax(row)) if row.any() else -1 for row in ne]
 
 
-def profile_generate(torch, tag, gen, args):
+def profile_call(torch, tag, gen, args):
     """One traced call of `gen(*args)`: wall time, the device's busy time
     (sum of kernel durations; kernels of one stream do not overlap), and the
     kernels and host operators that take most of each."""
@@ -572,9 +662,12 @@ def profile_generate(torch, tag, gen, args):
         wall = time.perf_counter() - t0
     events = prof.key_averages()
     # Rows of device type CUDA are the kernels and copies themselves; operator
-    # rows repeat their kernels' time and are left out of the device sums.
+    # rows repeat their kernels' time and are left out of the device sums, as
+    # are user annotations on the device timeline (the optimizer's step
+    # range), which span kernels counted on their own.
     on_device = [e for e in events
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and not getattr(e, "is_user_annotation", False)]
     dev_time = lambda e: e.self_device_time_total
     busy = sum(dev_time(e) for e in on_device) / 1e6
     top_dev = sorted(on_device, key=dev_time, reverse=True)[:8]
@@ -585,6 +678,9 @@ def profile_generate(torch, tag, gen, args):
           "device_busy_seconds": busy,
           "device_idle_share": (1.0 - busy / wall) if busy > 0 else None,
           "device_launches": sum(e.count for e in on_device),
+          "device_ranges": [{"name": e.key[:60], "ms": dev_time(e) / 1e3}
+                            for e in events if getattr(e, "is_user_annotation", False)
+                            and e.device_type == torch.autograd.DeviceType.CUDA],
           "top_device": [{"name": e.key[:60], "calls": e.count,
                           "ms": dev_time(e) / 1e3} for e in top_dev],
           "top_host": [{"name": e.key[:60], "calls": e.count,
@@ -636,7 +732,7 @@ def serve(torch, dev, tag, model, audio_np, max_new, greedy_b, beam_b,
     launches_per_generate = {name: fn.launches for name, fn in counters.items()}
     res_u, secs_u = run(gen_u, greedy_b)
     if trace:
-        profile_generate(torch, tag + ":greedy_fused", gen_f,
+        profile_call(torch, tag + ":greedy_fused", gen_f,
                          (audio_np[:greedy_b], lens[:greedy_b],
                           np.ones((greedy_b, 1), np.int64)))
     tok_f = res_f["tokens"].cpu().numpy()
@@ -772,13 +868,309 @@ def speechlike_audio(rng, b, n):
     return audio
 
 
+# ---------------------------------------------------------------------------
+# Phases 6-7: the training path
+# ---------------------------------------------------------------------------
+def train_batch(torch, dev, seed, b, n_tokens, l=128, lo=64):
+    """b seeded 20 s windows and text [b, l] with lengths drawn from lo..l,
+    made on the card. The second half's lengths are a permutation of the
+    first half's, so two micro-batches of b/2 hold the same number of real
+    tokens (the grad_acc gate needs it; see gate_grad_acc)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    half = torch.randint(lo, l + 1, (b // 2,), generator=g, device=dev)
+    perm = torch.randperm(b // 2, generator=g, device=dev)
+    lens = torch.cat([half, half[perm]])
+    return {
+        "audio": torch.randn((b, TRAIN_SAMPLES), generator=g, device=dev) * 0.1,
+        "audio_lens": torch.full((b,), TRAIN_SAMPLES, dtype=torch.int32, device=dev),
+        "text": torch.randint(0, n_tokens, (b, l), generator=g, device=dev),
+        "text_mask": torch.arange(l, device=dev)[None, :] < lens[:, None],
+        "spk_ids": torch.zeros((b, l), dtype=torch.long, device=dev),
+    }
+
+
+def make_system(torch, dev, cfg, tc, state, compute_dtype, frontend=None):
+    """An ASRSystem on the card with f32 parameters `state`."""
+    from tal_asrd_tpu_torch.core.config import FrontendConfig
+    from tal_asrd_tpu_torch.train.system import ASRSystem
+    system = ASRSystem(cfg, tc, frontend or FrontendConfig(), compute_dtype=compute_dtype,
+                       device=dev)
+    system.model.load_state_dict(state)
+    return system
+
+
+def flat_grad(torch, system):
+    return torch.cat([p.grad.float().flatten() for p in system.model.parameters()])
+
+
+def run_train_2x(torch, dev, out_dir, trace=False):
+    """The 2x model (D=512, 10064 tokens, seeded weights, ReZero scalars 0.3)
+    trained by Trainer.fit for 10 steps on one repeated batch of 64 windows
+    of 20 s at TrainConfig's defaults: f32 parameters, bf16 compute, LAMB at
+    1e-4 * sqrt(64) with linear decay, dropout 0.2, SpecAugment, token
+    replacement 0.01. Then the precision and accumulation gates."""
+    import dataclasses
+    from tal_asrd_tpu_torch.core.config import FrontendConfig, ModelConfig, TrainConfig
+    from tal_asrd_tpu_torch.ops.cuda_kernels import fused_logmel_project
+    from tal_asrd_tpu_torch.ops.specaug import spec_augment
+    from tal_asrd_tpu_torch.train.loop import Trainer, TrainerConfig
+    from tal_asrd_tpu_torch.utils.logging import MetricsLogger
+
+    from tal_asrd_tpu_torch.models.asr import ASRModel
+
+    steps, b = 10, 64
+    cfg = ModelConfig(model_type="2x", num_speakers=64, vocab_size=10000)
+    tc = TrainConfig(max_steps=steps)
+    seeded = ASRModel(cfg, device="cpu", generator=torch.Generator().manual_seed(SEED))
+    with torch.no_grad():
+        for prm in seeded.parameters():
+            if prm.dim() == 0:
+                prm.fill_(0.3)     # raw-init ReZero scalars are 0: no branch would count
+    state = seeded.state_dict()
+    system = make_system(torch, dev, cfg, tc, state, torch.bfloat16)
+    batch = train_batch(torch, dev, SEED + 1, b, cfg.num_tokens)
+    logger = MetricsLogger(out_dir=out_dir, name="train_2x")
+    trainer = Trainer(system, TrainerConfig(max_epochs=1, max_steps=steps, log_every=1,
+                                            checkpoint_dir=os.path.join(out_dir, "ckpt_2x")),
+                      logger)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # The main path's run: counts set to 0 just before it, read just after.
+    for fn in (spec_augment, fused_logmel_project):
+        fn.launches = 0
+    spec_augment.backward_launches = 0
+    t0 = time.perf_counter()
+    trainer.fit([batch] * steps, [batch])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = {"spec_augment": spec_augment.launches,
+                "spec_augment_backward": spec_augment.backward_launches,
+                "fused_logmel_project": fused_logmel_project.launches}
+    peak = torch.cuda.max_memory_allocated()
+    logger.close()
+    if trace:   # one more step, traced, after the counts were read
+        profile_call(torch, "train_2x:step", system.train_step, (batch,))
+    recs = [json.loads(line) for line in open(logger.path)]
+    step_recs = [r for r in recs if "loss" in r and "step_time_s" in r]
+    losses = [r["loss"] for r in step_recs]
+    step_ms = [1e3 * r["step_time_s"] for r in step_recs]
+    med = float(np.median(step_ms[2:]))
+    out = {"phase": "train_2x", "model_type": "2x", "d_decoder": cfg.d_decoder,
+           "num_tokens": cfg.num_tokens, "batch": b, "window_seconds": TRAIN_SAMPLES / 16000,
+           "text_len": 128, "grad_acc": tc.grad_acc, "lr": tc.scaled_lr,
+           "params_dtype": "float32", "compute_dtype": "bfloat16", "steps": system.step,
+           "losses": losses, "grad_norms": [r["grad_norm"] for r in step_recs],
+           "step_ms": step_ms, "median_step_ms_3_10": med,
+           "audio_seconds_per_second": b * TRAIN_SAMPLES / 16000 / (med / 1e3),
+           "fit_seconds_with_checkpoints": fit_s, "max_memory_allocated_bytes": peak,
+           "launches": launches}
+    if len(losses) != steps or not all(np.isfinite(losses)):
+        fail(f"train_2x: losses {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"train_2x: the last loss {losses[-1]} is not below the first {losses[0]}")
+    micro = steps * tc.grad_acc
+    # K2 also runs once for the validation batch at the epoch's end
+    want = {"spec_augment": micro, "spec_augment_backward": 0,
+            "fused_logmel_project": micro + 1}
+    if launches != want:
+        fail(f"train_2x: launches {launches}, expected {want}")
+    del trainer, system
+    torch.cuda.empty_cache()
+
+    # bf16 against f32: one step's loss and whole gradient, same weights,
+    # batch and draws, dropout off
+    no_drop = dataclasses.replace(cfg, dropout=0.0, tds_dropout=0.0)
+    grads, loss = {}, {}
+    for name, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        sys_ = make_system(torch, dev, no_drop, tc, state, dt)
+        m = sys_.compute_grads(batch)
+        loss[name], grads[name] = float(m["loss"]), flat_grad(torch, sys_)
+        del sys_
+    cos = float(torch.nn.functional.cosine_similarity(
+        grads["bfloat16"], grads["float32"], dim=0))
+    rel_loss = abs(loss["bfloat16"] - loss["float32"]) / abs(loss["float32"])
+    out["bf16_vs_f32"] = {"loss": loss, "loss_rel_diff": rel_loss, "grad_cosine": cos}
+    if not (rel_loss <= 0.02 and cos >= 0.99):
+        fail(f"train_2x: bf16 against f32 loss {rel_loss:.4f} (> 0.02) or gradient "
+             f"cosine {cos:.4f} (< 0.99)")
+    del grads
+    out["grad_acc_2_vs_1"] = gate_grad_acc(torch, dev, no_drop, tc, state, batch)
+    emit(out)
+    return out
+
+
+def gate_grad_acc(torch, dev, cfg, tc, state, batch):
+    """f32, dropout off: grad_acc=2 against grad_acc=1 on the same batch and
+    draws. As tests/test_train.py does, the frontend's batch-wide mean
+    subtraction is off (it couples the examples of a batch, so a micro-batch
+    would see another mean) and the halves hold equal token counts
+    (train_batch), so that the mean of the two halves' masked means is the
+    full batch's."""
+    import dataclasses
+    from tal_asrd_tpu_torch.core.config import FrontendConfig
+    fe = FrontendConfig(mean_subtract=False)
+    res = {}
+    for acc in (1, 2):
+        sys_ = make_system(torch, dev, cfg, dataclasses.replace(tc, grad_acc=acc), state,
+                           torch.float32, frontend=fe)
+        m = sys_.compute_grads(batch)
+        res[acc] = (float(m["loss"]), flat_grad(torch, sys_))
+        del sys_
+    rel_loss = abs(res[2][0] - res[1][0]) / abs(res[1][0])
+    rel_grad = float((res[2][1] - res[1][1]).norm() / res[1][1].norm())
+    rec = {"loss": [res[1][0], res[2][0]], "loss_rel_diff": rel_loss,
+           "grad_rel_norm_diff": rel_grad}
+    if not (rel_loss <= 1e-5 and rel_grad <= 1e-4):
+        fail(f"train_2x: grad_acc=2 against 1: loss {rel_loss} (> 1e-5) or gradient "
+             f"{rel_grad} (> 1e-4)")
+    return rec
+
+
+def run_train_1x_checkpoint(torch, dev, root, out_dir):
+    """The tracked checkpoint in f32 parameters: 2 steps at B=8, a save
+    through CheckpointManager, a reload through the port's reader (bit for
+    bit), and a greedy fused generate (K1, K2) on both sets of weights."""
+    from tal_asrd_tpu_torch.core.checkpoint import CheckpointManager, load_pytree
+    from tal_asrd_tpu_torch.core.config import ModelConfig, TrainConfig
+    from tal_asrd_tpu_torch.core.convert import load_into, params_to_state_dict
+    from tal_asrd_tpu_torch.decode.beam import BeamSearchSpec, make_generate_fn
+    from tal_asrd_tpu_torch.decode.fused_step import FusedASRDecoder
+    from tal_asrd_tpu_torch.models.asr import ASRModel
+    from tal_asrd_tpu_torch.ops.cuda_decode import fused_layer_step
+    from tal_asrd_tpu_torch.ops.cuda_kernels import fused_logmel_project
+    from tal_asrd_tpu_torch.ops.specaug import spec_augment
+
+    tree = load_pytree(os.path.join(root, "accuracy_release", "avg_last_3.bf16.msgpack"))
+    cfg = ModelConfig(model_type="1x", num_speakers=8, vocab_size=300)
+    tc = TrainConfig(batch_size=8, max_steps=2)
+    system = make_system(torch, dev, cfg, tc, params_to_state_dict(tree), torch.bfloat16)
+    batch = train_batch(torch, dev, SEED + 2, 8, cfg.num_tokens)
+    counters = {"spec_augment": spec_augment, "fused_logmel_project": fused_logmel_project,
+                "fused_layer_step": fused_layer_step}
+    for fn in counters.values():
+        fn.launches = 0
+    losses = [float(system.train_step(batch)["loss"]) for _ in range(2)]
+    train_launches = {k: fn.launches for k, fn in counters.items()}
+    mgr = CheckpointManager(os.path.join(out_dir, "ckpt_1x"))
+    path = mgr.save(system.step, system.params_tree())
+    reloaded = ASRModel(cfg, dtype=torch.float32, compute_dtype=torch.bfloat16, device="cpu")
+    load_into(reloaded, load_pytree(path))
+    reloaded = reloaded.to(dev)
+    mine = system.model.eval()
+    unequal = [n for (n, a), b in zip(mine.state_dict().items(),
+                                      reloaded.state_dict().values())
+               if not torch.equal(a, b)]
+    if unequal or not all(np.isfinite(losses)):
+        fail(f"train_1x_checkpoint: losses {losses}, reloaded parameters differ: {unequal[:4]}")
+
+    spec = BeamSearchSpec(beam_size=1, max_new_tokens=32, eos_id=-1,
+                          vocab_size=cfg.num_tokens, text_vocab_size=cfg.vocab_size,
+                          force_output=True)
+    audio = speechlike_audio(np.random.default_rng(SEED + 3), 8, WINDOW_SAMPLES)
+    lens = np.full((8,), WINDOW_SAMPLES, np.int64)
+    prime = np.ones((8, 1), np.int64)
+    toks = {}
+    for name, model in (("in_memory", mine), ("reloaded", reloaded)):
+        gen = make_generate_fn(model, spec, decoder=FusedASRDecoder(model), device=dev)
+        for fn in counters.values():
+            fn.launches = 0
+        toks[name] = gen(audio, lens, prime)["tokens"].cpu().numpy()
+        gen_launches = {k: fn.launches for k, fn in counters.items()}
+    out = {"phase": "train_1x_checkpoint", "losses": losses, "steps": system.step,
+           "checkpoint_bytes": os.path.getsize(path), "params_bit_equal": True,
+           "tokens_equal": bool((toks["in_memory"] == toks["reloaded"]).all()),
+           "train_launches": train_launches, "generate_launches": gen_launches}
+    emit(out)
+    want_train = {"spec_augment": 2, "fused_logmel_project": 2, "fused_layer_step": 0}
+    want_gen = {"spec_augment": 0, "fused_logmel_project": 1,
+                "fused_layer_step": cfg.n_decoder_layers * 32}
+    if train_launches != want_train or gen_launches != want_gen:
+        fail(f"train_1x_checkpoint: launches {train_launches} / {gen_launches}, "
+             f"expected {want_train} / {want_gen}")
+    if not out["tokens_equal"]:
+        fail("train_1x_checkpoint: greedy tokens differ between the in-memory and the "
+             "reloaded weights")
+    return out
+
+
+def kernel_entry(config, rec, launches_n, err, mode=None):
+    """One record of the `kernels` line."""
+    return {"name": rec["name"], "mode": mode or rec.get("mode", "none"),
+            "config": config, "route": rec["route"], "source": rec["source"],
+            "replaces": rec["replaces"], "launches": launches_n,
+            "max_abs_err": err, "errors": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": rec["library_ms"], "eager_ms": rec.get("eager_ms"),
+            "shape": rec.get("timed_shape", rec["shape"]), "dtype": rec["dtype"]}
+
+
+def serving_phases(torch, dev, root, args, k1, k2, checks, timed):
+    """Phases 4-5: the serving path in every decoder configuration. Returns
+    the launches per configuration and their `kernels` entries."""
+    # ---- 4-5. the serving path --------------------------------------------------
+    # Each configuration: greedy B=32 x 96 tokens (2x) / B=8 x 64 (1x) through
+    # `make_generate_fn`, fused against unfused in lockstep, and beam 5 at B=8
+    # (the kv8-only and w8-only configurations run greedy only).
+    rng = np.random.default_rng(SEED)
+    model_2x = build_2x(torch, dev)
+    audio_2x = (rng.standard_normal((32, WINDOW_SAMPLES)) * 0.1).astype(np.float32)
+    launches = {}
+    for config, flags, beam_b in (
+            ("2x", {}, 8),
+            ("2x_kv8", {"kv8": True}, None),
+            ("2x_w8", {"w8": True}, None),
+            ("2x_kv8_w8", {"kv8": True, "w8": True}, 8),
+            ("2x_stacked", {"stacked": True}, 8),
+            ("2x_stacked_kv8_w8", {"stacked": True, "kv8": True, "w8": True}, 8)):
+        launches[config] = serve(torch, dev, "serve_" + config, model_2x, audio_2x,
+                                 max_new=96, greedy_b=32, beam_b=beam_b,
+                                 trace=args.profile, **flags
+                                 )["greedy"]["launches_per_generate"]
+    del model_2x
+    torch.cuda.empty_cache()
+
+    model_1x, n_leaves = build_1x_checkpoint(torch, dev, root)
+    if n_leaves != 151:
+        fail(f"checkpoint: {n_leaves} leaves placed, expected 151")
+    audio_1x = speechlike_audio(rng, 8, WINDOW_SAMPLES)
+    for config, flags in (("1x", {}),
+                          ("1x_stacked_kv8_w8", {"stacked": True, "kv8": True, "w8": True})):
+        tag = "serve_1x_checkpoint" + config[2:]
+        launches[config] = serve(torch, dev, tag, model_1x, audio_1x, max_new=64,
+                                 greedy_b=8, beam_b=8, trace=args.profile, **flags
+                                 )["greedy"]["launches_per_generate"]
+
+    # every kernel of each configuration's path, with its launches in that
+    # configuration's one timed fused greedy generate (counts zeroed just
+    # before it)
+    entries = []
+    for config, kern, mode in (
+            ("2x", "K1", "none"), ("1x", "K1", "none"),
+            ("2x_kv8", "K1", "kv8"), ("2x_w8", "K1", "w8"), ("2x_kv8_w8", "K1", "kv8+w8"),
+            ("2x_stacked", "K3", "none"), ("2x_stacked_kv8_w8", "K3", "kv8+w8"),
+            ("1x_stacked_kv8_w8", "K3", "kv8+w8")):
+        model = config[:2]
+        if kern == "K1" and mode == "none":       # the records of phase 3
+            rec = k1[model]
+        else:
+            rec = dict(checks[(model, kern, mode, "bfloat16")], **timed[(model, kern, mode)])
+        entries.append(kernel_entry(config, rec, launches[config][rec["name"]],
+                             rec["max_abs_err"]["x_out"], mode))
+        entries.append(kernel_entry(config, k2[model], launches[config]["fused_logmel_project"],
+                             k2[model]["max_abs_err"]))
+    return launches, entries
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="all", choices=("all", "kernels"),
-                    help="'kernels' stops after the build and the kernel checks")
+    ap.add_argument("--phases", default="all", choices=("all", "kernels", "train"),
+                    help="'kernels' stops after the build and the kernel checks; "
+                         "'train' skips the serving phases")
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one fused greedy generate per model with "
-                         "torch.profiler and print where the time goes")
+                    help="also trace one fused greedy generate per model and one "
+                         "2x training step with torch.profiler and print where the "
+                         "time goes")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -815,34 +1207,45 @@ def main() -> None:
           "build_seconds": _build.build_seconds})
 
     # ---- 2-3. kernels against their plain versions ----------------------------
-    # K2 at both models' request batches (32 and 8 windows)
-    k2 = {"2x": check_logmel(torch, dev, 32), "1x": check_logmel(torch, dev, 8)}
+    # K2 at both models' request batches (32 and 8 windows of 28.56 s) and at
+    # the trainers' batches (64 and 8 windows of 20 s)
+    k2 = {"2x": check_logmel(torch, dev, 32), "1x": check_logmel(torch, dev, 8),
+          "train_2x": check_logmel(torch, dev, 64, TRAIN_SAMPLES),
+          "train_1x": check_logmel(torch, dev, 8, TRAIN_SAMPLES)}
+    # K4 at the trainers' shapes [64 | 8, 2001, 80] and at the edge cases
+    k4 = {"train_2x": check_specaug(torch, dev, 64, edge_cases=True),
+          "train_1x": check_specaug(torch, dev, 8)}
     bf16, f32 = torch.bfloat16, torch.float32
     # K1 at the shapes the serving phases give it, S=340: greedy lanes (2x:
     # B=32, L=97; 1x: B=8, L=65) and beam-5 lanes (B=40), at the first and the
-    # last indices of a decode; and at S=357, an unaligned chunk's window.
+    # last indices of a decode; at S=357, an unaligned chunk's window; and at
+    # the shape of train_1x_checkpoint's generate (B=8, L=33). `key` names the
+    # records the kernels line gives.
     k1 = {}
-    for name, d, b, s, l_buf in (
-            ("2x", 512, 32, 357, 97), ("1x", 256, 32, 357, 97),
-            ("2x", 512, 32, 340, 97), ("1x", 256, 8, 340, 65),
-            ("2x", 512, 40, 340, 97), ("1x", 256, 40, 340, 65)):
+    for key, name, d, b, s, l_buf in (
+            (None, "2x", 512, 32, 357, 97), (None, "1x", 256, 32, 357, 97),
+            ("2x", "2x", 512, 32, 340, 97), ("1x", "1x", 256, 8, 340, 65),
+            (None, "2x", 512, 40, 340, 97), (None, "1x", 256, 40, 340, 65),
+            ("train_1x", "1x", 256, 8, 340, 33)):
         for first_index in (0, l_buf - 4):
             for dt in (f32, bf16):
-                rec = check_layer_step(torch, dev, f"{name},B={b},S={s}", b, d, 4,
+                rec = check_layer_step(torch, dev, f"{name},B={b},S={s},L={l_buf}", b, d, 4,
                                        s, l_buf, dt, first_index)
-                if s == 340 and b in (32, 8) and dt == bf16:
-                    if name in k1:      # the worst over both index ranges
-                        for key, v in k1[name]["max_abs_err"].items():
-                            rec["max_abs_err"][key] = max(rec["max_abs_err"][key], v)
-                    k1[name] = rec
-    # timings at the serving shapes: the greedy lanes, last step of the run
-    k1["2x"].update(time_decode(torch, dev, "K1", "none", 32, 512, 4, 340, 97, 95, bf16))
-    k1["1x"].update(time_decode(torch, dev, "K1", "none", 8, 256, 4, 340, 65, 63, bf16))
+                if key is not None and dt == bf16:
+                    if key in k1:       # the worst over both index ranges
+                        for k, v in k1[key]["max_abs_err"].items():
+                            rec["max_abs_err"][k] = max(rec["max_abs_err"][k], v)
+                    k1[key] = rec
+    # timings at those shapes: the greedy lanes, last step of the run
+    for key, b, d, l_buf in (("2x", 32, 512, 97), ("1x", 8, 256, 65),
+                             ("train_1x", 8, 256, 33)):
+        k1[key].update(time_decode(torch, dev, "K1", "none", b, d, 4, 340, l_buf,
+                                   l_buf - 2, bf16))
     emit({"phase": "kernel_timing", "name": "fused_layer_step", "card": card,
           "note": "ms = CUDA-graph replay (device time); eager_ms = eager loop (includes the host)",
-          **{name: {k: k1[name][k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms",
-                                              "bound_by", "timed_shape")}
-             for name in ("2x", "1x")}})
+          **{key: {k: v[k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms",
+                                     "bound_by", "timed_shape")}
+             for key, v in k1.items()}})
 
     # ---- 3b. K1's int8 modes and K3 against their plain versions, at the -----
     # shapes the new serving configurations give them: greedy lanes (2x B=32,
@@ -876,74 +1279,41 @@ def main() -> None:
     if args.phases == "kernels":
         print("chip_smoke: kernel checks passed (serving phases skipped)", flush=True)
         return
+    out_dir = os.path.join(root, "out", "chip_smoke")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    serve_entries = []
+    if args.phases == "all":
+        serve_entries = serving_phases(torch, dev, root, args, k1, k2, checks, timed)[1]
 
-    # ---- 4-5. the serving path --------------------------------------------------
-    # Each configuration: greedy B=32 x 96 tokens (2x) / B=8 x 64 (1x) through
-    # `make_generate_fn`, fused against unfused in lockstep, and beam 5 at B=8
-    # (the kv8-only and w8-only configurations run greedy only).
-    rng = np.random.default_rng(SEED)
-    model_2x = build_2x(torch, dev)
-    audio_2x = (rng.standard_normal((32, WINDOW_SAMPLES)) * 0.1).astype(np.float32)
-    launches = {}
-    for config, flags, beam_b in (
-            ("2x", {}, 8),
-            ("2x_kv8", {"kv8": True}, None),
-            ("2x_w8", {"w8": True}, None),
-            ("2x_kv8_w8", {"kv8": True, "w8": True}, 8),
-            ("2x_stacked", {"stacked": True}, 8),
-            ("2x_stacked_kv8_w8", {"stacked": True, "kv8": True, "w8": True}, 8)):
-        launches[config] = serve(torch, dev, "serve_" + config, model_2x, audio_2x,
-                                 max_new=96, greedy_b=32, beam_b=beam_b,
-                                 trace=args.profile, **flags
-                                 )["greedy"]["launches_per_generate"]
-    del model_2x
-    torch.cuda.empty_cache()
-
-    model_1x, n_leaves = build_1x_checkpoint(torch, dev, root)
-    if n_leaves != 151:
-        fail(f"checkpoint: {n_leaves} leaves placed, expected 151")
-    audio_1x = speechlike_audio(rng, 8, WINDOW_SAMPLES)
-    for config, flags in (("1x", {}),
-                          ("1x_stacked_kv8_w8", {"stacked": True, "kv8": True, "w8": True})):
-        tag = "serve_1x_checkpoint" + config[2:]
-        launches[config] = serve(torch, dev, tag, model_1x, audio_1x, max_new=64,
-                                 greedy_b=8, beam_b=8, trace=args.profile, **flags
-                                 )["greedy"]["launches_per_generate"]
-
-    # ---- 6. every kernel of each configuration's path, with its launches in ---
-    # that configuration's one timed fused greedy generate (counts zeroed just
-    # before it)
-    def entry(config, rec, launches_n, err, mode=None):
-        return {"name": rec["name"], "mode": mode or rec.get("mode", "none"),
-                "config": config, "route": rec["route"], "source": rec["source"],
-                "replaces": rec["replaces"], "launches": launches_n,
-                "max_abs_err": err, "errors": rec["max_abs_err"], "ms": rec["ms"],
-                "plain_ms": rec["plain_ms"],
-                "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
-                "library_ms": rec["library_ms"], "eager_ms": rec.get("eager_ms"),
-                "shape": rec.get("timed_shape", rec["shape"]), "dtype": rec["dtype"]}
-
-    entries = []
-    for config, kern, mode in (
-            ("2x", "K1", "none"), ("1x", "K1", "none"),
-            ("2x_kv8", "K1", "kv8"), ("2x_w8", "K1", "w8"), ("2x_kv8_w8", "K1", "kv8+w8"),
-            ("2x_stacked", "K3", "none"), ("2x_stacked_kv8_w8", "K3", "kv8+w8"),
-            ("1x_stacked_kv8_w8", "K3", "kv8+w8")):
-        model = config[:2]
-        if kern == "K1" and mode == "none":       # the records of phase 3
-            rec = k1[model]
-        else:
-            rec = dict(checks[(model, kern, mode, "bfloat16")], **timed[(model, kern, mode)])
-        entries.append(entry(config, rec, launches[config][rec["name"]],
-                             rec["max_abs_err"]["x_out"], mode))
-        entries.append(entry(config, k2[model], launches[config]["fused_logmel_project"],
-                             k2[model]["max_abs_err"]))
+    # ---- 6-7. the training path ------------------------------------------------
+    t2 = run_train_2x(torch, dev, out_dir, trace=args.profile)
+    t1 = run_train_1x_checkpoint(torch, dev, root, out_dir)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    # each training path's kernels, each with the record of the shape that
+    # path gave it: train_1x_checkpoint trains at B=8 x 20 s and generates at
+    # B=8 x 28.56 s, 32 tokens
+    t1_train, t1_gen = t1["train_launches"], t1["generate_launches"]
+    entries = serve_entries + [
+        kernel_entry("train_2x", k2["train_2x"], t2["launches"]["fused_logmel_project"],
+                     k2["train_2x"]["max_abs_err"]),
+        kernel_entry("train_2x", k4["train_2x"], t2["launches"]["spec_augment"],
+                     k4["train_2x"]["max_abs_err"]),
+        kernel_entry("train_1x_checkpoint:train", k4["train_1x"], t1_train["spec_augment"],
+                     k4["train_1x"]["max_abs_err"]),
+        kernel_entry("train_1x_checkpoint:train", k2["train_1x"],
+                     t1_train["fused_logmel_project"], k2["train_1x"]["max_abs_err"]),
+        kernel_entry("train_1x_checkpoint:generate", k2["1x"],
+                     t1_gen["fused_logmel_project"], k2["1x"]["max_abs_err"]),
+        kernel_entry("train_1x_checkpoint:generate", k1["train_1x"],
+                     t1_gen["fused_layer_step"], k1["train_1x"]["max_abs_err"]["x_out"],
+                     "none"),
+    ]
     never = [(e["config"], e["name"]) for e in entries if e["launches"] <= 0]
     if never:
-        fail(f"a kernel of a serving path was never launched: {never}")
+        fail(f"a kernel of a path was never launched: {never}")
     emit({"kernels": entries, "card": card, "seconds_total": time.perf_counter() - t_start})
 
-    # ---- 7. the contract line ---------------------------------------------------
+    # ---- 8. the contract line ---------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

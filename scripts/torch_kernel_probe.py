@@ -6,8 +6,9 @@ questions chip_smoke.py does not answer. Imports torch and the port only.
     python3 scripts/torch_kernel_probe.py build-time     # nvcc seconds per source, +- --split-compile
     python3 scripts/torch_kernel_probe.py ab PARENT_DIR  # K1 bf16 ms: PARENT_DIR's tree vs this
                                                          # one, alternating (parent, this, this, parent)
-    python3 scripts/torch_kernel_probe.py checks         # chip_smoke.py --phases kernels with every
-                                                         # miss printed instead of ending the run
+    python3 scripts/torch_kernel_probe.py checks [PHASES]  # chip_smoke.py --phases PHASES (default
+                                                         # kernels) with every miss printed instead
+                                                         # of ending the run
 
 PARENT_DIR is an unpacked copy of another commit (`git archive`), in a
 directory that .gitignore lists.
@@ -94,7 +95,7 @@ def ab(parent: str) -> None:
         print((res.stdout.strip().splitlines() or [res.stderr[-800:]])[-1], flush=True)
 
 
-def checks() -> None:
+def checks(phases: str) -> None:
     sys.path.insert(0, ROOT)
     import chip_smoke as cs
     misses = []
@@ -104,7 +105,7 @@ def checks() -> None:
         print("MISS:", msg, flush=True)
 
     cs.fail = report
-    sys.argv = ["chip_smoke.py", "--phases", "kernels"]
+    sys.argv = ["chip_smoke.py", "--phases", phases]
     cs.main()
     print(json.dumps({"misses": len(misses)}))
 
@@ -116,7 +117,8 @@ def main() -> None:
     cmd = sys.argv[1]
     if cmd in ("ab", "time-k1") and len(sys.argv) != 3:
         sys.exit(__doc__)
-    {"ptxas": ptxas, "build-time": build_time, "checks": checks,
+    {"ptxas": ptxas, "build-time": build_time,
+     "checks": lambda: checks(sys.argv[2] if len(sys.argv) > 2 else "kernels"),
      "ab": lambda: ab(sys.argv[2]), "time-k1": lambda: time_k1(sys.argv[2])}[cmd]()
 
 

@@ -1,28 +1,36 @@
-"""Read-only loader for the reference's checkpoint files.
+"""Checkpoint files in the reference's format, and their managers.
 
-Counterpart of tal_asrd_tpu/core/checkpoint.py `load_pytree` (no target):
-the reference writes parameters as flax msgpack bytes. This is a minimal
-pure-Python reader of the msgpack subset that format uses — maps, strings,
+Counterpart of tal_asrd_tpu/core/checkpoint.py: the reference writes
+parameter trees as flax msgpack bytes. This is a minimal pure-Python reader
+and writer of the msgpack subset that format uses — maps, strings,
 binaries, integers, floats, booleans, arrays and extension types — so the
 port needs neither `msgpack` nor `flax`. Extension type 1 is an ndarray
 packed as msgpack `(shape, dtype_name, bytes)`; type 3 is a numpy scalar in
-the same packing; oversized leaves arrive as chunk dictionaries and are
-re-joined.
+the same packing; the reader re-joins leaves that arrive as chunk
+dictionaries (arrays over 2**30 bytes); the writer refuses such leaves. The
+writer emits the bytes flax's `msgpack_serialize` emits for the same tree,
+so the reference's `load_pytree` reads the port's files.
 
 numpy has no bfloat16, so a `bfloat16` leaf comes back as its 16-bit
 patterns in an array of dtype `BFLOAT16_BITS` (uint16 tagged through dtype
-metadata). `core/convert.py` turns those into `torch.bfloat16` with a view;
-`is_bfloat16_bits` tells them apart from ordinary uint16 data.
+metadata), and such an array is written as `bfloat16`. `core/convert.py`
+turns them into `torch.bfloat16` and back with a view; `is_bfloat16_bits`
+tells them apart from ordinary uint16 data.
 
-There is no writer and there are no checkpoint managers here; they arrive
-with training.
+`CheckpointManager` keeps every saved parameter tree (`ckpt_<step>.msgpack`,
+`latest.json`) and full training states (`state_<step>.msgpack`), and
+averages the last k parameter trees (`average_params`).
 """
 from __future__ import annotations
 
+import json
+import os
+import re
 import struct
-from typing import Any, Tuple
+from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 # uint16 carrying bfloat16 bit patterns. The metadata survives frombuffer /
 # reshape / view, which is all the loader does with it.
@@ -159,3 +167,214 @@ def load_pytree(path: str) -> Any:
     """Read a checkpoint file into a nested dict of numpy arrays."""
     with open(path, "rb") as f:
         return msgpack_restore(f.read())
+
+
+# ---------------------------------------------------------------------------
+# Writer
+# ---------------------------------------------------------------------------
+_MAX_LEAF_BYTES = 2 ** 30
+
+
+def _pack_len(out: List[bytes], n: int, small: Optional[int], codes) -> None:
+    """Header of a sized type: fix form (small: its base byte and limit) or
+    the 8/16/32-bit forms `codes`."""
+    if small is not None and n < small[1]:
+        out.append(bytes([small[0] | n]))
+    elif codes[0] is not None and n < 1 << 8:
+        out.append(struct.pack(">BB", codes[0], n))
+    elif n < 1 << 16:
+        out.append(struct.pack(">BH", codes[1], n))
+    elif n < 1 << 32:
+        out.append(struct.pack(">BI", codes[2], n))
+    else:
+        raise ValueError(f"msgpack object of size {n} is too large")
+
+
+def _pack_int(out: List[bytes], x: int) -> None:
+    if 0 <= x < 0x80 or -0x20 <= x < 0:
+        out.append(struct.pack(">b" if x < 0 else ">B", x))
+    elif x >= 0:
+        for code, fmt, limit in ((0xCC, ">BB", 1 << 8), (0xCD, ">BH", 1 << 16),
+                                 (0xCE, ">BI", 1 << 32), (0xCF, ">BQ", 1 << 64)):
+            if x < limit:
+                out.append(struct.pack(fmt, code, x))
+                return
+        raise ValueError(f"integer {x} does not fit msgpack")
+    else:
+        for code, fmt, limit in ((0xD0, ">Bb", 1 << 7), (0xD1, ">Bh", 1 << 15),
+                                 (0xD2, ">Bi", 1 << 31), (0xD3, ">Bq", 1 << 63)):
+            if x >= -limit:
+                out.append(struct.pack(fmt, code, x))
+                return
+        raise ValueError(f"integer {x} does not fit msgpack")
+
+
+def _ndarray_bytes(arr: np.ndarray) -> bytes:
+    name = "bfloat16" if is_bfloat16_bits(arr) else arr.dtype.name
+    if arr.dtype.hasobject:
+        raise TypeError("object arrays cannot be written")
+    raw = np.ascontiguousarray(arr).tobytes()
+    if len(raw) > _MAX_LEAF_BYTES:
+        raise ValueError(f"an array leaf of {len(raw)} bytes exceeds the "
+                         f"{_MAX_LEAF_BYTES}-byte limit of one leaf")
+    return msgpack_serialize((tuple(int(d) for d in arr.shape), name, raw))
+
+
+def _pack_ext(out: List[bytes], code: int, payload: bytes) -> None:
+    n = len(payload)
+    fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    if n in fixed:
+        out.append(struct.pack(">Bb", fixed[n], code))
+    else:
+        _pack_len(out, n, None, (0xC7, 0xC8, 0xC9))
+        out.append(struct.pack(">b", code))
+    out.append(payload)
+
+
+def _pack(out: List[bytes], obj: Any) -> None:
+    if obj is None:
+        out.append(b"\xc0")
+    elif obj is True or obj is False:
+        out.append(b"\xc3" if obj else b"\xc2")
+    elif type(obj) is int:
+        _pack_int(out, obj)
+    elif type(obj) is float:
+        out.append(struct.pack(">Bd", 0xCB, obj))
+    elif type(obj) is str:
+        raw = obj.encode("utf-8")
+        _pack_len(out, len(raw), (0xA0, 32), (0xD9, 0xDA, 0xDB))
+        out.append(raw)
+    elif type(obj) is bytes:
+        _pack_len(out, len(obj), None, (0xC4, 0xC5, 0xC6))
+        out.append(obj)
+    elif type(obj) in (list, tuple):
+        _pack_len(out, len(obj), (0x90, 16), (None, 0xDC, 0xDD))
+        for item in obj:
+            _pack(out, item)
+    elif type(obj) is dict:
+        _pack_len(out, len(obj), (0x80, 16), (None, 0xDE, 0xDF))
+        for key in sorted(obj):          # flax writes a tree's keys sorted
+            _pack(out, key)
+            _pack(out, obj[key])
+    elif isinstance(obj, np.ndarray):
+        _pack_ext(out, _EXT_NDARRAY, _ndarray_bytes(obj))
+    elif isinstance(obj, np.generic):
+        _pack_ext(out, _EXT_NPSCALAR, _ndarray_bytes(np.asarray(obj)))
+    else:
+        raise TypeError(f"cannot write a {type(obj).__name__} to msgpack")
+
+
+def msgpack_serialize(tree: Any) -> bytes:
+    """Nested dict / list / tuple of numpy arrays, numpy scalars and Python
+    scalars -> msgpack bytes, as flax's `msgpack_serialize` writes them."""
+    out: List[bytes] = []
+    _pack(out, tree)
+    return b"".join(out)
+
+
+def save_pytree(path: str, tree: Any) -> None:
+    """Atomic write (a temporary file, then a rename), so a writer killed
+    mid-save never leaves a truncated file at `path`."""
+    path = os.path.abspath(path)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    data = msgpack_serialize(tree)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(data)
+    os.replace(tmp, path)
+
+
+def _tree_map(fn, *trees):
+    if isinstance(trees[0], dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def _mean_leaf(*leaves) -> np.ndarray:
+    """Mean in float64, cast back to the leaves' dtype (bfloat16 bit
+    patterns rounded to nearest even, through torch)."""
+    from tal_asrd_tpu_torch.core.convert import to_numpy, to_tensor
+    ts = [to_tensor(x) for x in leaves]
+    mean = sum(t.to(torch.float64) for t in ts) / len(ts)
+    return to_numpy(mean.to(ts[0].dtype))
+
+
+def average_params(param_trees: Sequence[Any]) -> Any:
+    """Leaf-wise mean of k parameter trees of one structure."""
+    if not param_trees:
+        raise ValueError("no parameter trees to average")
+    return _tree_map(_mean_leaf, *param_trees)
+
+
+# ---------------------------------------------------------------------------
+# Manager
+# ---------------------------------------------------------------------------
+class CheckpointManager:
+    """Keep-all parameter checkpoints + a latest pointer + averaging, and
+    full training-state checkpoints for an exact resume."""
+
+    def __init__(self, directory: str):
+        self.dir = directory
+        os.makedirs(directory, exist_ok=True)
+
+    def _path(self, step: int) -> str:
+        return os.path.join(self.dir, f"ckpt_{step:08d}.msgpack")
+
+    def _state_path(self, step: int) -> str:
+        return os.path.join(self.dir, f"state_{step:08d}.msgpack")
+
+    def _steps(self, pattern: str) -> List[int]:
+        return sorted(int(m.group(1)) for m in
+                      (re.match(pattern, f) for f in os.listdir(self.dir)) if m)
+
+    def save(self, step: int, params: Any, extra: Optional[dict] = None) -> str:
+        """Write a parameter tree and point `latest.json` at it."""
+        path = self._path(step)
+        save_pytree(path, params)
+        manifest = {"step": step, "path": os.path.basename(path)}
+        if extra:
+            manifest.update(extra)
+        tmp = os.path.join(self.dir, "latest.json.tmp")
+        with open(tmp, "w") as f:
+            json.dump(manifest, f)
+        os.replace(tmp, os.path.join(self.dir, "latest.json"))
+        return path
+
+    def steps(self) -> List[int]:
+        return self._steps(r"ckpt_(\d+)\.msgpack$")
+
+    def load(self, step: Optional[int] = None) -> Any:
+        """The parameter tree of `step` (the latest if None)."""
+        if step is None:
+            steps = self.steps()
+            if not steps:
+                raise FileNotFoundError(f"no checkpoints in {self.dir}")
+            step = steps[-1]
+        return load_pytree(self._path(step))
+
+    def average_last(self, k: int) -> Any:
+        steps = self.steps()[-k:]
+        if not steps:
+            raise FileNotFoundError(f"no checkpoints to average in {self.dir}")
+        return average_params([self.load(s) for s in steps])
+
+    def save_state(self, step: int, state_tree: Any) -> str:
+        """Write a full training state (step, params, optimizer moments)."""
+        path = self._state_path(step)
+        save_pytree(path, state_tree)
+        return path
+
+    def state_steps(self) -> List[int]:
+        return self._steps(r"state_(\d+)\.msgpack$")
+
+    def load_state(self, step: Optional[int] = None) -> Any:
+        """The training-state tree of `step` (the latest if None)."""
+        if step is None:
+            step = self.latest_state_step()
+            if step is None:
+                raise FileNotFoundError(f"no state checkpoints in {self.dir}")
+        return load_pytree(self._state_path(step))
+
+    def latest_state_step(self) -> Optional[int]:
+        steps = self.state_steps()
+        return steps[-1] if steps else None

@@ -1,10 +1,11 @@
-"""Typed configuration for the frontend, the model and decoding.
+"""Typed configuration for the frontend, the model, SpecAugment, training
+and decoding.
 
-Own copy of the dataclasses the serving path reads (counterpart:
-tal_asrd_tpu/core/config.py). Field names and defaults are the same, so a
-test can build both packages' configs from one set of keyword arguments.
-Fields that only select a TPU lowering (`use_pallas`, `spectrum_impl`,
-`conv_impl`, `remat`) have no meaning here and are left out.
+Own copy of the dataclasses the serving and training paths read
+(counterpart: tal_asrd_tpu/core/config.py). Field names and defaults are the
+same, so a test can build both packages' configs from one set of keyword
+arguments. Fields that only select a TPU lowering (`use_pallas`,
+`spectrum_impl`, `conv_impl`) have no meaning here and are left out.
 """
 from __future__ import annotations
 
@@ -34,6 +35,17 @@ class FrontendConfig:
 
 
 @dataclass(frozen=True)
+class SpecAugmentConfig:
+    """SpecAugment: 2 frequency masks of width < 27 and 2 time masks of
+    width < 100 per example. Zero masks turn it off."""
+
+    freq_mask_param: int = 27
+    num_freq_masks: int = 2
+    time_mask_param: int = 100
+    num_time_masks: int = 2
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     """Joint ASR model. model_type '1x' -> d_decoder 256, '2x' -> 512; both
     4 decoder layers. TDS channel plan [n_mels, 10n, 14n, 18n], depths
@@ -52,6 +64,7 @@ class ModelConfig:
     tds_depths: Tuple[int, ...] = (2, 3, 6)
     tds_kernel: int = 21
     tds_dropout: float = 0.2
+    remat: bool = False        # recompute encoder blocks in the backward pass
     # Encoder padding-mask scaling: 'buffer' or 'batch_max'
     # (models/asr.py encoder_padding_mask).
     pad_mask_mode: str = "buffer"
@@ -95,6 +108,37 @@ class ModelConfig:
     @property
     def time_reduction(self) -> int:
         return 2 ** (len(self.tds_channels) - 1)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Training hyperparameters. `lr` is the base rate per sqrt(example):
+    the optimizer runs at `scaled_lr`."""
+
+    batch_size: int = 64
+    val_batch_size: Optional[int] = None
+    lr: Optional[float] = 1e-4
+    grad_acc: int = 1
+    num_data_shards: int = 1
+    max_steps: Optional[int] = None
+    max_epochs: int = 100
+    smoothing: float = 0.0
+    spk_weight: float = 0.0
+    lm_weight: float = 0.0
+    max_secs: float = 20.0
+    token_replace_prob: float = 0.01  # random input-token replacement
+    seed: int = 42
+
+    @property
+    def effective_batch_size(self) -> int:
+        return self.num_data_shards * self.batch_size * self.grad_acc
+
+    @property
+    def scaled_lr(self) -> Optional[float]:
+        """Square-root scaling rule: lr * sqrt(effective batch)."""
+        if self.lr is None:
+            return None
+        return self.lr * (self.effective_batch_size ** 0.5)
 
 
 @dataclass(frozen=True)

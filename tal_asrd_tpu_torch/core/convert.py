@@ -23,6 +23,14 @@ module it fills.
 Leaves may be float arrays or bfloat16 bit patterns as `core/checkpoint.py`
 returns them; the latter become `torch.bfloat16` through a view, without a
 round trip through float32.
+
+`state_dict_to_params` is the inverse, for the checkpoint writer and the
+gradient-parity tests: a 2-D weight under `encoder.` goes back to a 1x1 conv
+kernel [1, in, out] (the encoder's only dense layers are the TDS blocks'
+pointwise convs), any other 2-D weight to a Dense kernel [in, out], a 3-D
+weight to a grouped-conv kernel [K, C_in/G, C_out]. bfloat16 tensors become
+bfloat16 bit patterns (`core/checkpoint.py`), every other tensor a numpy
+array of its dtype.
 """
 from __future__ import annotations
 
@@ -33,7 +41,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from tal_asrd_tpu_torch.core.checkpoint import is_bfloat16_bits
+from tal_asrd_tpu_torch.core.checkpoint import BFLOAT16_BITS, is_bfloat16_bits
 
 _LAYER_RE = re.compile(r"^layers_(\d+)$")
 
@@ -100,3 +108,55 @@ def load_into(model: nn.Module, tree: Dict[str, Any]) -> nn.Module:
     unfilled, or a shape disagrees."""
     model.load_state_dict(params_to_state_dict(tree), strict=True)
     return model
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """torch tensor -> numpy leaf (a copy, on the host); bfloat16 becomes
+    its bit patterns tagged as such."""
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(BFLOAT16_BITS).copy()
+    return t.numpy().copy()
+
+
+def _unconvert_entry(name: str, t: torch.Tensor) -> Tuple[Tuple[str, ...], torch.Tensor]:
+    parts = name.split(".")
+    path = []
+    i = 0
+    while i < len(parts) - 1:
+        if parts[i] == "layers" and parts[i + 1].isdigit():
+            path.append(f"layers_{parts[i + 1]}")
+            i += 2
+        else:
+            path.append(parts[i])
+            i += 1
+    leaf = parts[-1]
+    if leaf == "weight" and path and path[-1] == "embedding":
+        return tuple(path) + ("embedding",), t
+    if leaf == "weight":
+        if t.dim() == 2 and path[0] == "encoder":     # pointwise conv
+            t = t.T[None]
+        elif t.dim() == 2:                           # Dense
+            t = t.T
+        elif t.dim() == 3:                           # grouped conv
+            t = t.permute(2, 1, 0)
+        else:
+            raise ValueError(f"weight {name} has rank {t.dim()}")
+        return tuple(path) + ("kernel",), t
+    return tuple(path) + (leaf,), t
+
+
+def state_dict_to_params(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """state_dict of the port's ASRModel (or any tensors keyed the same way)
+    -> the reference's parameter tree (no top-level 'params') of numpy
+    arrays; `params_to_state_dict` of the result gives the tensors back."""
+    tree: Dict[str, Any] = {}
+    for name, t in state_dict.items():
+        path, t = _unconvert_entry(name, t)
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        if path[-1] in node:
+            raise ValueError(f"two entries map to {'/'.join(path)}")
+        node[path[-1]] = to_numpy(t)
+    return tree

@@ -53,7 +53,7 @@ class FusedASRDecoder:
                  stacked: bool = False):
         self.model = model
         self.cfg = model.cfg
-        self.dtype = model.dtype
+        self.dtype = model.compute_dtype
         self.kv8 = kv8
         self.w8 = w8
         self.stacked = stacked

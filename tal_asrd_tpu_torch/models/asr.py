@@ -9,12 +9,20 @@ transformer decoder with cross-attention, factorized tied token embeddings
   * init_decode_state()/decode_step() provide KV-cached single-token decoding
     for the beam search. The decode state is a plain dict whose `index` is a
     Python int; the self-attention caches in it are updated in place;
-  * parameters are stored in the module dtype (`dtype=torch.bfloat16` in
-    production, float32 in the parity tests); the frontend stays float32.
+  * parameters are stored in `dtype` (bfloat16 for serving, float32 for
+    training and the parity tests) and the model computes in
+    `compute_dtype` (default: `dtype`). With f32 parameters and bf16
+    compute, as the reference trains, the log-mel is cast to bf16 and every
+    layer casts its parameters to its input's dtype (explicit casts,
+    models/layers.py; no autocast), so the gradients land on the f32
+    parameters. The frontend and SpecAugment stay float32;
+  * construction leaves the model in eval mode, as serving wants it;
+    `.train()` turns on every dropout, and `extract_features(train=True)`
+    applies SpecAugment (ops/specaug.py, kernel K4 on the card) to the f32
+    log-mel before the cast.
 
 Not ported yet: the separate speaker head (`use_speaker_head=True` raises
-NotImplementedError; `decode_spk` comes with it) and SpecAugment. The model
-is inference-only and is put in eval mode at construction.
+NotImplementedError; `decode_spk` comes with it).
 """
 from __future__ import annotations
 
@@ -23,14 +31,20 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from tal_asrd_tpu_torch.core.config import FrontendConfig, ModelConfig
+from tal_asrd_tpu_torch.core.config import (
+    FrontendConfig,
+    ModelConfig,
+    SpecAugmentConfig,
+)
 from tal_asrd_tpu_torch.models.decoder import (
     PositionalEncoding,
     RZDecoder,
     sinusoidal_positions,
 )
+from tal_asrd_tpu_torch.models.layers import Linear
 from tal_asrd_tpu_torch.models.tds import TDS
 from tal_asrd_tpu_torch.ops.logmel import log_mel_spectrogram
+from tal_asrd_tpu_torch.ops.specaug import spec_augment_seeded
 
 
 def encoder_padding_mask(audio_lens: torch.Tensor, max_audio_len: int,
@@ -56,11 +70,14 @@ def encoder_padding_mask(audio_lens: torch.Tensor, max_audio_len: int,
 class ASRModel(nn.Module):
     def __init__(self, cfg: ModelConfig,
                  frontend: FrontendConfig = FrontendConfig(),
+                 specaug: SpecAugmentConfig = SpecAugmentConfig(),
                  dtype: torch.dtype = torch.float32,
                  device: str = "cuda",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 compute_dtype: Optional[torch.dtype] = None):
         """Parameters are drawn on the CPU from `generator` (the global RNG
-        if None), then moved to `device` in `dtype`."""
+        if None), then moved to `device` in `dtype`; the forward computes in
+        `compute_dtype` (`dtype` if None)."""
         super().__init__()
         if cfg.use_speaker_head:
             raise NotImplementedError(
@@ -68,14 +85,16 @@ class ASRModel(nn.Module):
                 "speaker-token mode (use_speaker_head=False)")
         self.cfg = cfg
         self.frontend = frontend
+        self.specaug = specaug
         self.dtype = dtype
+        self.compute_dtype = compute_dtype or dtype
         c = cfg
         d = c.d_decoder
         self.encoder = TDS(
             input_size=c.n_mels, sizes=c.tds_channels, depths=c.tds_depths,
-            kernel=c.tds_kernel, dropout=c.tds_dropout,
+            kernel=c.tds_kernel, dropout=c.tds_dropout, remat=c.remat,
         )
-        self.decoder_proj = nn.Linear(c.tds_channels[-1], d)
+        self.decoder_proj = Linear(c.tds_channels[-1], d)
         self.enc_drop = nn.Dropout(c.dropout)
 
         embed_dim = c.embed_size if c.embed_size else d
@@ -98,7 +117,8 @@ class ASRModel(nn.Module):
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        """The reference's initial distribution: matrices and conv kernels
+        """The reference's initial distribution, drawn from a CPU
+        `generator` (the global RNG if None): matrices and conv kernels
         normal with std 1/sqrt(fan_in), the embedding table uniform in
         +-1/sqrt(embed_dim), biases and the ReZero scalars zero. With the
         scalars at zero every decoder branch is multiplied away, so parity
@@ -106,30 +126,42 @@ class ASRModel(nn.Module):
         for name, p in self.named_parameters():
             if p.dim() <= 1:
                 p.zero_()
-            elif name == "embedding.weight":
+                continue
+            # drawn in f32 on the CPU (a CPU generator), wherever p lives
+            t = torch.empty(p.shape, dtype=torch.float32)
+            if name == "embedding.weight":
                 bound = 1.0 / p.shape[1] ** 0.5
-                p.uniform_(-bound, bound, generator=generator)
+                t.uniform_(-bound, bound, generator=generator)
             elif name == "embedding_proj":
-                p.normal_(std=1.0 / p.shape[0] ** 0.5, generator=generator)
+                t.normal_(std=1.0 / p.shape[0] ** 0.5, generator=generator)
             else:  # Linear [out, in] or conv [C_out, C_in / G, K]
                 fan_in = p[0].numel()
-                p.normal_(std=1.0 / fan_in ** 0.5, generator=generator)
+                t.normal_(std=1.0 / fan_in ** 0.5, generator=generator)
+            p.copy_(t)
 
     # ------------------------------------------------------------------
     # Encoder side
     # ------------------------------------------------------------------
     def extract_features(self, audio: torch.Tensor,
-                         audio_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Raw audio [B, T] -> log-mel [B, F, n_mels] in the model dtype.
+                         audio_lens: Optional[torch.Tensor] = None,
+                         train: bool = False,
+                         specaug_seeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Raw audio [B, T] -> log-mel [B, F, n_mels] in the compute dtype.
 
         int16 input is accepted and scaled on the device (16-bit PCM at the
         source, so it is lossless and halves the host->device transfer).
-        audio_lens enables the masked mean (ops/logmel.py)."""
+        audio_lens enables the masked mean (ops/logmel.py). With `train`,
+        SpecAugment zeroes the spans of `specaug_seeds` ([B] int32, on the
+        audio's device) in the f32 log-mel before the cast."""
         if audio.dtype == torch.int16:
             audio = audio.to(torch.float32) / 32768.0
         mel = log_mel_spectrogram(audio.to(torch.float32), self.frontend,
                                   audio_lens=audio_lens)
-        return mel.to(self.dtype)
+        if train:
+            if specaug_seeds is None:
+                raise ValueError("train=True needs the SpecAugment seeds")
+            mel = spec_augment_seeded(specaug_seeds, mel, self.specaug)
+        return mel.to(self.compute_dtype)
 
     def encode_features(
         self, feats: torch.Tensor, audio_lens: Optional[torch.Tensor] = None,
@@ -148,8 +180,11 @@ class ASRModel(nn.Module):
                 "encoder_padding_mask": mask}
 
     def encode(self, audio: torch.Tensor,
-               audio_lens: Optional[torch.Tensor] = None) -> Dict[str, Any]:
-        feats = self.extract_features(audio, audio_lens=audio_lens)
+               audio_lens: Optional[torch.Tensor] = None,
+               train: bool = False,
+               specaug_seeds: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+        feats = self.extract_features(audio, audio_lens=audio_lens, train=train,
+                                      specaug_seeds=specaug_seeds)
         return self.encode_features(feats, audio_lens, audio.shape[-1])
 
     # ------------------------------------------------------------------
@@ -167,16 +202,16 @@ class ASRModel(nn.Module):
         return mem + self.mem_pos_alpha.to(mem.dtype) * pe[None]
 
     def embed_tokens(self, y: torch.Tensor) -> torch.Tensor:
-        e = self.embedding(y)
+        e = self.embedding(y).to(self.compute_dtype)
         if self.cfg.embed_size:
-            e = e @ self.embedding_proj
+            e = e @ self.embedding_proj.to(e.dtype)
         return e
 
     def output_logits(self, h: torch.Tensor) -> torch.Tensor:
         """Tied factorized head: h -> embed space -> vocab."""
         if self.cfg.embed_size:
-            h = h @ self.embedding_proj.T
-        return h @ self.embedding.weight.T
+            h = h @ self.embedding_proj.to(h.dtype).T
+        return h @ self.embedding.weight.to(h.dtype).T
 
     def decode(
         self,
@@ -197,10 +232,14 @@ class ASRModel(nn.Module):
         return self.output_logits(h), attn
 
     def forward(self, audio: torch.Tensor, y_prev: torch.Tensor,
-                audio_lens: torch.Tensor):
+                audio_lens: torch.Tensor, train: bool = False,
+                specaug_seeds: Optional[torch.Tensor] = None):
         """Full forward. Returns ((lm_logits, None), encoder_out); the second
-        slot is the speaker head's, which is not ported yet."""
-        encoder_out = self.encode(audio, audio_lens)
+        slot is the speaker head's, which is not ported yet. `train` applies
+        SpecAugment with `specaug_seeds`; dropout follows the module's
+        train() / eval() mode."""
+        encoder_out = self.encode(audio, audio_lens, train=train,
+                                  specaug_seeds=specaug_seeds)
         lm_logits, _ = self.decode(y_prev, encoder_out, causal=True)
         return (lm_logits, None), encoder_out
 
@@ -214,7 +253,8 @@ class ASRModel(nn.Module):
         return {
             "mem_kvs": self.decoder.precompute_mem_kvs(
                 self.add_mem_posenc(encoder_out["encoder_out"])),
-            "caches": self.decoder.init_cache(batch, max_len),
+            "caches": self.decoder.init_cache(batch, max_len,
+                                              dtype=self.compute_dtype),
             "index": 0,
             "mask": encoder_out["encoder_padding_mask"],
         }
@@ -255,7 +295,8 @@ class ASRModel(nn.Module):
         """Causal full decode of a history buffer that also fills the
         self-attention KV caches (positions restart at 0). Returns (logits
         [B, P, V], mean-layer cross-attn [B, P, S], caches)."""
-        caches = self.decoder.init_cache(y.shape[0], cache_len)
+        caches = self.decoder.init_cache(y.shape[0], cache_len,
+                                         dtype=self.compute_dtype)
         e = self.pos_dec(self.embed_tokens(y))
         h, attn, caches = self.decoder(
             e, None, memory_key_padding_mask=mem_mask,

@@ -11,8 +11,14 @@ the fused layer-step kernel (ops/cuda_decode.py) is held against.
     buffer [B, L, H, dh] addressed by a step index. The buffer is UPDATED IN
     PLACE (the reference returns a fresh array per step); the returned cache
     dict holds the same tensors.
-  * Attention logits and softmax run in float32; the rest follows the module
-    dtype (bfloat16 in production).
+  * Attention logits and softmax run in float32; the rest follows the dtype
+    of the activations (bfloat16 in production), to which every dense layer
+    casts its parameters (models/layers.py), so f32 parameters can train
+    under bf16 compute.
+  * Dropout, active only in train() mode, sits where the reference has it:
+    on the attention probabilities after the head mean is taken and before
+    the PV product, and on each residual branch (two drops on the
+    feed-forward path).
 
 As in torch.nn.MultiheadAttention, returned attention weights are averaged
 over heads, scaling is 1/sqrt(head_dim), and a key_padding_mask is True
@@ -28,6 +34,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from tal_asrd_tpu_torch.models.layers import Linear
 
 NEG_INF = -1e9  # additive mask value; softmax runs in f32
 
@@ -66,11 +74,15 @@ def _attend(
     k: torch.Tensor,  # [B, Tk, H, Dh]
     v: torch.Tensor,  # [B, Tk, H, Dh]
     bias: Optional[torch.Tensor],  # additive [B or 1, 1 or H, Tq, Tk] in f32
+    dropout: float = 0.0,
+    training: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Scaled dot-product attention. Returns (out [B, Tq, H, Dh] in q's
     dtype, mean-over-heads weights [B, Tq, Tk] in float32). Logits are
     accumulated and soft-maxed in f32; the probabilities are cast to the
-    value dtype for the weighted sum, which accumulates in f32."""
+    value dtype for the weighted sum, which accumulates in f32. In training
+    the probabilities are dropped after the head mean is taken, so the
+    returned weights never carry dropout."""
     dtype = q.dtype
     dh = q.shape[-1]
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
@@ -79,6 +91,8 @@ def _attend(
         logits = logits + bias
     weights = torch.softmax(logits, dim=-1)  # f32
     mean_weights = weights.mean(dim=1)       # [B, Tq, Tk]
+    if training and dropout > 0.0:
+        weights = F.dropout(weights, dropout, training=True)
     out = torch.einsum("bhqk,bkhd->bqhd", weights.to(dtype).float(), v.float())
     return out.to(dtype), mean_weights
 
@@ -86,12 +100,13 @@ def _attend(
 class SelfAttention(nn.Module):
     """Fused-QKV self-attention with an optional fixed-size KV cache."""
 
-    def __init__(self, d_model: int, n_head: int):
+    def __init__(self, d_model: int, n_head: int, dropout: float = 0.0):
         super().__init__()
         self.d_model = d_model
         self.n_head = n_head
-        self.qkv = nn.Linear(d_model, 3 * d_model)
-        self.out_proj = nn.Linear(d_model, d_model)
+        self.dropout = dropout
+        self.qkv = Linear(d_model, 3 * d_model)
+        self.out_proj = Linear(d_model, d_model)
 
     def forward(
         self,
@@ -120,7 +135,8 @@ class SelfAttention(nn.Module):
             pos = torch.arange(ck.shape[1], device=x.device)
             qpos = cache_index + torch.arange(t, device=x.device)
             bias = torch.where(pos[None, :] <= qpos[:, None], 0.0, NEG_INF)
-            out, w = _attend(q, ck.to(q.dtype), cv.to(q.dtype), bias[None, None])
+            out, w = _attend(q, ck.to(q.dtype), cv.to(q.dtype), bias[None, None],
+                             self.dropout, self.training)
         else:
             bias = None
             if causal:
@@ -129,7 +145,7 @@ class SelfAttention(nn.Module):
             if key_padding_mask is not None:
                 kp = torch.where(key_padding_mask[:, None, None, :], NEG_INF, 0.0)
                 bias = kp if bias is None else bias + kp
-            out, w = _attend(q, k, v, bias)
+            out, w = _attend(q, k, v, bias, self.dropout, self.training)
 
         return self.out_proj(out.reshape(b, t, self.d_model)), w, new_cache
 
@@ -137,13 +153,14 @@ class SelfAttention(nn.Module):
 class CrossAttention(nn.Module):
     """Encoder-decoder attention; memory K/V precomputable once per window."""
 
-    def __init__(self, d_model: int, n_head: int):
+    def __init__(self, d_model: int, n_head: int, dropout: float = 0.0):
         super().__init__()
         self.d_model = d_model
         self.n_head = n_head
-        self.q = nn.Linear(d_model, d_model)
-        self.kv = nn.Linear(d_model, 2 * d_model)
-        self.out_proj = nn.Linear(d_model, d_model)
+        self.dropout = dropout
+        self.q = Linear(d_model, d_model)
+        self.kv = Linear(d_model, 2 * d_model)
+        self.out_proj = Linear(d_model, d_model)
 
     def precompute_kv(self, memory: torch.Tensor) -> Dict[str, torch.Tensor]:
         b, s, _ = memory.shape
@@ -167,7 +184,8 @@ class CrossAttention(nn.Module):
         bias = None
         if key_padding_mask is not None:
             bias = torch.where(key_padding_mask[:, None, None, :], NEG_INF, 0.0)
-        out, w = _attend(q, mem_kv["k"], mem_kv["v"], bias)
+        out, w = _attend(q, mem_kv["k"], mem_kv["v"], bias, self.dropout,
+                         self.training)
         return self.out_proj(out.reshape(b, t, self.d_model)), w
 
 
@@ -177,10 +195,10 @@ class RZDecoderLayer(nn.Module):
     def __init__(self, d_model: int, n_head: int, dim_feedforward: int,
                  dropout: float = 0.1):
         super().__init__()
-        self.self_attn = SelfAttention(d_model, n_head)
-        self.cross_attn = CrossAttention(d_model, n_head)
-        self.linear1 = nn.Linear(d_model, dim_feedforward)
-        self.linear2 = nn.Linear(dim_feedforward, d_model)
+        self.self_attn = SelfAttention(d_model, n_head, dropout)
+        self.cross_attn = CrossAttention(d_model, n_head, dropout)
+        self.linear1 = Linear(d_model, dim_feedforward)
+        self.linear2 = Linear(dim_feedforward, d_model)
         self.resweight = nn.Parameter(torch.zeros(()))
         self.resweight_src = nn.Parameter(torch.zeros(()))
         self.drop = nn.Dropout(dropout)

@@ -7,9 +7,12 @@ TDSBlocks (kernel 21, SAME). Total time reduction 8x. Residuals are
 ReZero-gated: one scalar `resweight` (init 0) per block gates both the conv
 and the feed-forward residual.
 
-Activations are [B, T, C]. Inference only so far: the dropout modules
-exist (so training can arrive later without renaming parameters) and the
-modules are put in eval mode at construction.
+Activations are [B, T, C] and every layer computes in their dtype (f32
+parameters train under bf16 compute: models/layers.py). Construction leaves
+the modules in eval mode, as serving wants them; `.train()` turns on the
+three dropouts of each block. With `remat=True` each block's activations are
+recomputed in the backward pass (`torch.utils.checkpoint`), trading compute
+for the memory the encoder dominates in training.
 """
 from __future__ import annotations
 
@@ -18,22 +21,24 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from tal_asrd_tpu_torch.models.layers import Linear
 from tal_asrd_tpu_torch.ops.grouped_conv import GroupedConv1D
 
 
 class TDSBlock(nn.Module):
     """Grouped conv (k, SAME) -> ReLU -> dropout, then pointwise
     feed-forward (1x1 conv, ReLU, dropout, 1x1 conv, dropout); both residuals
-    scaled by `resweight`. The 1x1 convs are `nn.Linear` on [B, T, C]."""
+    scaled by `resweight`. The 1x1 convs are `Linear` on [B, T, C]."""
 
     def __init__(self, hidden: int, kernel: int, groups: int,
                  dropout: float = 0.1):
         super().__init__()
         self.resweight = nn.Parameter(torch.zeros(()))
         self.conv = GroupedConv1D(hidden, hidden, kernel, groups, padding="SAME")
-        self.fc1 = nn.Linear(hidden, hidden)
-        self.fc2 = nn.Linear(hidden, hidden)
+        self.fc1 = Linear(hidden, hidden)
+        self.fc2 = Linear(hidden, hidden)
         self.drop = nn.Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -50,12 +55,13 @@ class TDS(nn.Module):
 
     def __init__(self, input_size: int, sizes: Sequence[int],
                  depths: Sequence[int], kernel: int = 21, dropout: float = 0.1,
-                 extract_groups: int = 1):
+                 extract_groups: int = 1, remat: bool = False):
         super().__init__()
         self.input_size = input_size
         self.sizes = tuple(sizes)
         self.depths = tuple(depths)
         self.extract_groups = extract_groups
+        self.remat = remat
         for gi in range(len(self.sizes) - 1):
             setattr(self, f"down_{gi}", GroupedConv1D(
                 self.sizes[gi], self.sizes[gi + 1], kernel, input_size,
@@ -79,7 +85,12 @@ class TDS(nn.Module):
         for gi in groups:
             x = getattr(self, f"down_{gi}")(x)
             for bi in range(self.depths[gi]):
-                x = getattr(self, f"group_{gi}_block_{bi}")(x)
+                block = getattr(self, f"group_{gi}_block_{bi}")
+                if self.remat and self.training and torch.is_grad_enabled():
+                    # the saved RNG state replays each dropout mask exactly
+                    x = checkpoint(block, x, use_reentrant=False)
+                else:
+                    x = block(x)
         return x
 
 

@@ -9,7 +9,8 @@ here they are one `F.conv1d(groups=G)`.
 Activations keep the reference's [B, T, C] layout at the module boundary
 (the transpose to PyTorch's [B, C, T] happens inside). The weight is stored
 in PyTorch's conv layout [C_out, C_in / G, K]; core/convert.py permutes the
-reference's [K, C_in / G, C_out] into it.
+reference's [K, C_in / G, C_out] into it. The weight and bias are cast to
+the input's dtype, so f32 parameters can train under bf16 compute.
 """
 from __future__ import annotations
 
@@ -52,6 +53,7 @@ class GroupedConv1D(nn.Module):
         if self.padding == "SAME":
             lo = (self.kernel - 1) // 2
             x = F.pad(x, (lo, self.kernel - 1 - lo))
-        y = F.conv1d(x, self.weight, self.bias, stride=self.stride,
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        y = F.conv1d(x, self.weight.to(x.dtype), bias, stride=self.stride,
                      groups=self.groups)
         return y.transpose(1, 2)

@@ -1,0 +1,130 @@
+"""Training loop over any iterable of batch dicts.
+
+Counterpart of tal_asrd_tpu/train/loop.py `Trainer`: per-epoch keep-all
+parameter checkpoints, early stopping (patience on the validation loss),
+validation every epoch or every `val_check_interval` steps, and the smoke
+modes `quick_test` (one train and one validation batch) and `overfit_pct`
+(train on a fraction of the loader, early stopping off). The full training
+state (parameters, LAMB moments, step) is written on the last epoch, or on
+every checkpoint epoch with `state_ckpt="every"`, and `fit(resume=True)`
+continues from the newest one. The generation spot check of the reference
+needs the tokenizer and is not ported yet.
+
+A logged step's `step_time_s` is taken after its metrics are read back, so
+it includes the device's work.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Iterable, Optional
+
+import numpy as np
+
+from tal_asrd_tpu_torch.core.checkpoint import CheckpointManager
+from tal_asrd_tpu_torch.utils.logging import MetricsLogger
+
+
+@dataclass
+class TrainerConfig:
+    max_epochs: int = 100
+    max_steps: Optional[int] = None
+    early_stop_patience: int = 10
+    val_check_interval: Optional[int] = None  # steps; None = per epoch
+    quick_test: bool = False
+    overfit_pct: float = 0.0
+    checkpoint_dir: str = "./checkpoints"
+    log_every: int = 50
+    ckpt_every: int = 1          # checkpoint every N epochs (the last always)
+    # Training-state checkpoints: 'last' writes it only on the final epoch,
+    # 'every' on every checkpoint epoch (parameters are always written).
+    state_ckpt: str = "last"
+
+
+class Trainer:
+    def __init__(self, system, cfg: TrainerConfig,
+                 logger: Optional[MetricsLogger] = None):
+        if cfg.state_ckpt not in ("last", "every"):
+            raise ValueError(f"state_ckpt must be 'last' or 'every', got {cfg.state_ckpt!r}")
+        self.system = system
+        self.cfg = cfg
+        self.logger = logger or MetricsLogger(name="train")
+        self.ckpt = CheckpointManager(cfg.checkpoint_dir)
+
+    def fit(self, train_loader: Iterable, val_loader: Iterable,
+            resume: bool = False) -> None:
+        """Train the system in place until max_epochs, max_steps or early
+        stopping."""
+        cfg, system = self.cfg, self.system
+        if resume and self.ckpt.latest_state_step() is not None:
+            system.load_state_tree(self.ckpt.load_state())
+            print(f"[trainer] resumed the full state at step {system.step}")
+
+        best_val = float("inf")
+        bad_epochs = 0
+        stop = False
+        n_batches = None
+        if cfg.quick_test:
+            n_batches = 1
+        elif cfg.overfit_pct > 0:
+            n_batches = max(1, int(len(train_loader) * cfg.overfit_pct))
+
+        for epoch in range(cfg.max_epochs):
+            if hasattr(train_loader, "sampler") and hasattr(train_loader.sampler, "set_epoch"):
+                train_loader.sampler.set_epoch(epoch)
+            t_epoch = time.time()
+            for bi, batch in enumerate(train_loader):
+                if n_batches is not None and bi >= n_batches:
+                    break
+                t0 = time.time()
+                metrics = system.train_step(batch)
+                step = system.step
+                if step % cfg.log_every == 0 or cfg.quick_test:
+                    metrics = {k: float(v) for k, v in metrics.items()}
+                    metrics["step_time_s"] = time.time() - t0
+                    metrics["epoch"] = epoch
+                    self.logger.log_metrics(metrics, step=step)
+                if cfg.max_steps is not None and step >= cfg.max_steps:
+                    stop = True
+                    break
+                if cfg.val_check_interval and step % cfg.val_check_interval == 0:
+                    self._validate(val_loader, step)
+            val_loss = self._validate(val_loader, system.step, n_batches=n_batches)
+            # the early-stop decision comes first, so a stopping epoch is
+            # checkpointed as the last one (state included)
+            if cfg.overfit_pct == 0:
+                if val_loss < best_val - 1e-6:
+                    best_val = val_loss
+                    bad_epochs = 0
+                else:
+                    bad_epochs += 1
+                    if bad_epochs >= cfg.early_stop_patience:
+                        print(f"[trainer] early stop at epoch {epoch}")
+                        stop = True
+            last_epoch = stop or cfg.quick_test or epoch == cfg.max_epochs - 1
+            if (epoch + 1) % cfg.ckpt_every == 0 or last_epoch:
+                with_state = cfg.state_ckpt == "every" or last_epoch
+                tree = system.state_tree() if with_state else None
+                self.ckpt.save(system.step,
+                               tree["params"] if with_state else system.params_tree(),
+                               extra={"epoch": epoch, "val_loss": val_loss})
+                if with_state:
+                    self.ckpt.save_state(system.step, tree)
+            self.logger.log_metrics(
+                {"epoch_time_s": time.time() - t_epoch, "val_loss": val_loss},
+                step=system.step)
+            if stop or cfg.quick_test:
+                break
+
+    def _validate(self, val_loader: Iterable, step: int,
+                  n_batches: Optional[int] = None) -> float:
+        losses = []
+        for bi, batch in enumerate(val_loader):
+            if n_batches is not None and bi >= n_batches:
+                break
+            losses.append(float(self.system.eval_step(batch)["loss"]))
+            if self.cfg.quick_test:
+                break
+        val = float(np.mean(losses)) if losses else float("nan")
+        self.logger.log_metrics({"val_loss_step": val}, step=step)
+        return val

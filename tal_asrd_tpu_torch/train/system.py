@@ -1,0 +1,221 @@
+"""ASR training system: loss, train and eval steps, optimizer wiring.
+
+Counterpart of tal_asrd_tpu/train/system.py `ASRSystem`:
+
+  * `loss_fn`: unknown speaker tokens clamped to the last speaker id (when
+    there are speakers and no speaker loss), 1 % of the input tokens
+    replaced by random text tokens, SpecAugment on the log-mel (kernel K4 on
+    the card), label-smoothed masked cross entropy; validation uses no
+    smoothing. `spk_weight > 0` needs the separate speaker head, which is
+    not ported yet: the constructor raises NotImplementedError;
+  * `train_step`: `grad_acc` micro-batches, their gradients averaged, one
+    LAMB update at the square-root-scaled learning rate with linear decay
+    over `max_steps` (constant without it); metrics loss, lm_loss,
+    spk_loss, grad_norm (the global norm of the averaged gradient);
+  * the model keeps f32 parameters and computes in `compute_dtype` (bf16
+    by default, as the reference trains).
+
+The system is stateful, as PyTorch is: it owns the model, the optimizer and
+the step count; `state_tree` / `load_state_tree` carry them in the layout of
+the reference's TrainState ({"step", "params", "opt_state": {"count", "mu",
+"nu"}}, flax parameter names), which the checkpoint manager writes.
+
+Randomness. Each step's draws — one SpecAugment seed per example and the
+token replacement — come from a generator seeded by (TrainConfig.seed,
+step), and are drawn for the whole batch
+before it is split into micro-batches, so `grad_acc` does not change them
+and a resumed run draws what an uninterrupted one would. Dropout uses
+PyTorch's default generator.
+
+Batches are dicts: audio [B, T] f32 (or int16), audio_lens [B] int,
+text [B, L] int, text_mask [B, L] bool, spk_ids [B, L] int; numpy arrays or
+tensors, moved to the system's device.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from tal_asrd_tpu_torch.core.config import (
+    FrontendConfig,
+    ModelConfig,
+    SpecAugmentConfig,
+    TrainConfig,
+)
+from tal_asrd_tpu_torch.core.convert import params_to_state_dict, state_dict_to_params
+from tal_asrd_tpu_torch.models.asr import ASRModel
+from tal_asrd_tpu_torch.ops.specaug import draw_seeds
+from tal_asrd_tpu_torch.train.losses import masked_token_loss
+from tal_asrd_tpu_torch.train.optimizers import LAMB
+from tal_asrd_tpu_torch.train.schedules import constant_schedule, linear_decay_schedule
+
+Batch = Dict[str, Any]
+METRIC_KEYS = ("loss", "lm_loss", "spk_loss")
+
+
+class ASRSystem:
+    """Owns the model (f32 parameters), the LAMB optimizer and the step."""
+
+    def __init__(self, model_cfg: ModelConfig,
+                 train_cfg: TrainConfig = TrainConfig(),
+                 frontend_cfg: FrontendConfig = FrontendConfig(),
+                 specaug_cfg: SpecAugmentConfig = SpecAugmentConfig(),
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 device: str = "cuda",
+                 generator: Optional[torch.Generator] = None):
+        """Parameters are drawn from the CPU `generator` (see
+        ASRModel.reset_parameters)."""
+        if train_cfg.spk_weight > 0:
+            raise NotImplementedError(
+                "spk_weight > 0 trains the separate speaker head, which is not "
+                "ported yet")
+        self.cfg = model_cfg
+        self.train_cfg = train_cfg
+        self.device = torch.device(device)
+        self.model = ASRModel(model_cfg, frontend_cfg, specaug_cfg,
+                              dtype=torch.float32, device=device,
+                              generator=generator, compute_dtype=compute_dtype)
+        self.optimizer = LAMB(self.model.parameters(), self._schedule())
+        self.step = 0
+
+    def _schedule(self):
+        tc = self.train_cfg
+        if tc.scaled_lr is None:
+            return constant_schedule(1e-3)
+        if tc.max_steps is not None:
+            return linear_decay_schedule(tc.scaled_lr, tc.max_steps)
+        return constant_schedule(tc.scaled_lr)
+
+    def init_state(self, generator: Optional[torch.Generator] = None) -> None:
+        """Fresh parameters from the CPU `generator`, zero optimizer
+        moments, step 0."""
+        self.model.reset_parameters(generator)
+        self.optimizer.state.clear()
+        self.step = 0
+
+    # ------------------------------------------------------------------
+    def _to_device(self, batch: Batch) -> Dict[str, torch.Tensor]:
+        return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
+                for k, v in batch.items()}
+
+    def step_generator(self) -> torch.Generator:
+        """The generator of this step's draws, seeded by (seed, step)."""
+        seed = (self.train_cfg.seed * 2 ** 32 + self.step) % 2 ** 63
+        return torch.Generator(device=self.device).manual_seed(seed)
+
+    def draw_noise(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """A batch's random draws from the step's generator: SpecAugment
+        seeds [B] and the token replacement of the inputs y[:, :-1] ([B, L-1]
+        mask and tokens)."""
+        generator = self.step_generator()
+        b, l = batch["text"].shape
+        noise = {"specaug_seeds": draw_seeds(b, generator, self.device)}
+        p = self.train_cfg.token_replace_prob
+        if p > 0:
+            shape = (b, l - 1)
+            noise["replace"] = torch.rand(shape, generator=generator,
+                                          device=self.device) < p
+            noise["replace_tok"] = torch.randint(
+                0, self.cfg.vocab_size, shape, generator=generator, device=self.device)
+        return noise
+
+    # ------------------------------------------------------------------
+    def loss_fn(self, batch: Batch, train: bool,
+                noise: Optional[Dict[str, torch.Tensor]] = None,
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """(loss, metrics) of one batch. `train` also puts the model in
+        train mode; its random draws are `noise` (`draw_noise`), or drawn
+        from the step's generator. Validation uses no label smoothing."""
+        cfg, tc = self.cfg, self.train_cfg
+        batch = self._to_device(batch)
+        self.model.train(train)
+        y = batch["text"].long()
+        if cfg.num_speakers > 0:
+            # unknown-speaker tokens -> the last speaker id
+            y = torch.clamp(y, max=cfg.vocab_size + cfg.num_speakers - 1)
+        y_prev, y_target = y[:, :-1], y[:, 1:]
+        seeds = None
+        if train:
+            if noise is None:
+                noise = self.draw_noise(batch)
+            seeds = noise["specaug_seeds"]
+            if "replace" in noise:
+                y_prev = torch.where(noise["replace"], noise["replace_tok"], y_prev)
+        (lm_logits, _), _ = self.model(batch["audio"], y_prev, batch["audio_lens"],
+                                       train=train, specaug_seeds=seeds)
+        smooth = tc.smoothing if train else 0.0
+        mask = batch["text_mask"][:, 1:]
+        lm_loss = masked_token_loss(lm_logits, y_target, mask, smooth)
+        spk_loss = torch.zeros((), dtype=torch.float32, device=self.device)
+        return lm_loss, {"loss": lm_loss, "lm_loss": lm_loss, "spk_loss": spk_loss}
+
+    def compute_grads(self, batch: Batch) -> Dict[str, torch.Tensor]:
+        """Average gradient of the batch over `grad_acc` micro-batches into
+        the parameters' `.grad`; returns the averaged metrics."""
+        acc = self.train_cfg.grad_acc
+        batch = self._to_device(batch)
+        b = batch["audio"].shape[0]
+        if b % acc:
+            raise ValueError(f"batch {b} does not split into grad_acc={acc} parts")
+        noise = self.draw_noise(batch)
+        self.optimizer.zero_grad(set_to_none=True)
+        sums = {k: torch.zeros((), device=self.device) for k in METRIC_KEYS}
+        mb = b // acc
+        for i in range(acc):
+            part = slice(i * mb, (i + 1) * mb)
+            loss, metrics = self.loss_fn({k: v[part] for k, v in batch.items()}, True,
+                                         noise={k: v[part] for k, v in noise.items()})
+            (loss / acc).backward()
+            for k in METRIC_KEYS:
+                sums[k] += metrics[k].detach()
+        return {k: v / acc for k, v in sums.items()}
+
+    def train_step(self, batch: Batch) -> Dict[str, torch.Tensor]:
+        """One optimizer step; returns 0-dim metric tensors (loss, lm_loss,
+        spk_loss, grad_norm) without waiting for the device."""
+        metrics = self.compute_grads(batch)
+        grads = [p.grad for p in self.model.parameters() if p.grad is not None]
+        metrics["grad_norm"] = torch.sqrt(sum(g.float().pow(2).sum() for g in grads))
+        self.optimizer.step()
+        self.step += 1
+        return metrics
+
+    @torch.no_grad()
+    def eval_step(self, batch: Batch) -> Dict[str, torch.Tensor]:
+        _, metrics = self.loss_fn(batch, False)
+        return metrics
+
+    # ------------------------------------------------------------------
+    def params_tree(self) -> Dict[str, Any]:
+        """The parameters as a numpy tree with the reference's names."""
+        return state_dict_to_params(self.model.state_dict())
+
+    def state_tree(self) -> Dict[str, Any]:
+        """The training state as numpy trees in the reference TrainState's
+        layout; moments are zero before the first step."""
+        named = dict(self.model.named_parameters())
+
+        def moment(key):
+            return state_dict_to_params({
+                n: self.optimizer.state[p][key] if p in self.optimizer.state
+                else torch.zeros_like(p) for n, p in named.items()})
+        return {"step": np.asarray(self.step, np.int32),
+                "params": self.params_tree(),
+                "opt_state": {"count": np.asarray(self.step, np.int32),
+                              "mu": moment("exp_avg"), "nu": moment("exp_avg_sq")}}
+
+    def load_state_tree(self, tree: Dict[str, Any]) -> None:
+        """Restore parameters, moments and step from `state_tree`'s layout."""
+        self.model.load_state_dict(params_to_state_dict(tree["params"]), strict=True)
+        count = int(tree["opt_state"]["count"])
+        mu = params_to_state_dict(tree["opt_state"]["mu"])
+        nu = params_to_state_dict(tree["opt_state"]["nu"])
+        self.optimizer.state.clear()
+        if count > 0:
+            for n, p in self.model.named_parameters():
+                self.optimizer.state[p] = {
+                    "step": count, "exp_avg": mu[n].to(p.device, p.dtype),
+                    "exp_avg_sq": nu[n].to(p.device, p.dtype)}
+        self.step = int(tree["step"])

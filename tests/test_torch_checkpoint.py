@@ -142,3 +142,131 @@ def test_teacher_forced_forward_matches_jax_on_the_checkpoint(trees):
     assert ours.shape == ref.shape == (2, 6, 308)
     np.testing.assert_allclose(ours.numpy(), ref, rtol=0, atol=2e-3)
     np.testing.assert_array_equal(ours.numpy().argmax(-1), ref.argmax(-1))
+
+
+# ---------------------------------------------------------------------------
+# The writer, the manager and the trainer's files
+# ---------------------------------------------------------------------------
+def test_writer_emits_the_bytes_flax_writes():
+    with open(CKPT, "rb") as f:
+        data = f.read()
+    assert tckpt.msgpack_serialize(tckpt.msgpack_restore(data)) == data
+    tree = {"a": np.arange(6, dtype=np.float32).reshape(2, 3),
+            "n": {"i": 7, "f": 0.5, "s": "txt" * 20, "neg": -300, "big": 70000,
+                  "t": True, "none": None, "sc": np.float32(1.5), "l": [1, [2, 3]],
+                  "z": np.zeros((), np.int32), "u": np.arange(300, dtype=np.uint8)},
+            "m": {str(i): i for i in range(20)}}
+    assert tckpt.msgpack_serialize(tree) == serialization.msgpack_serialize(tree)
+
+
+def _train_tiny():
+    from tests.test_torch_train import FRONTEND, NO_AUG, TINY
+    from tal_asrd_tpu_torch.core.config import (
+        FrontendConfig, SpecAugmentConfig, TrainConfig)
+    from tal_asrd_tpu_torch.train.system import ASRSystem
+
+    def make(**train):
+        tsys = ASRSystem(ModelConfig(**TINY),
+                         TrainConfig(**dict(batch_size=4, lr=1e-3, max_steps=20, **train)),
+                         FrontendConfig(**FRONTEND), SpecAugmentConfig(),
+                         compute_dtype=torch.float32, device="cpu")
+        tsys.init_state(torch.Generator().manual_seed(3))
+        with torch.no_grad():
+            for p in tsys.model.parameters():
+                if p.dim() == 0:
+                    p.fill_(0.4)          # ReZero scalars: let every branch count
+        return tsys
+    return make
+
+
+def test_port_written_params_give_jax_the_port_logits(tmp_path):
+    """The port writes its parameters; the JAX package reads the file with
+    its own load_pytree and its model gives the port's logits."""
+    from tal_asrd_tpu.core.checkpoint import load_pytree as j_load_pytree
+    from tests.test_torch_train import FRONTEND, TINY, tiny_batch
+    from tal_asrd_tpu.core.config import FrontendConfig as JFrontendConfig
+
+    tsys = _train_tiny()()
+    path = str(tmp_path / "params.msgpack")
+    tckpt.save_pytree(path, tsys.params_tree())
+    params = j_load_pytree(path)
+    batch = tiny_batch(b=2)
+    y = batch["text"][:, :-1]
+    jmodel = JASRModel(JModelConfig(conv_impl="xla", **TINY),
+                       JFrontendConfig(**FRONTEND), dtype=jnp.float32)
+    (ref, _), _ = jmodel.apply({"params": params}, jnp.asarray(batch["audio"]),
+                               jnp.asarray(y), jnp.asarray(batch["audio_lens"]))
+    with torch.no_grad():
+        (ours, _), _ = tsys.model(torch.from_numpy(batch["audio"]),
+                                  torch.from_numpy(y).long(),
+                                  torch.from_numpy(batch["audio_lens"]))
+    assert float(np.abs(np.asarray(ref)).max()) > 1.0
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=0, atol=1e-5)
+
+
+def test_resume_from_a_state_checkpoint_equals_an_uninterrupted_run(tmp_path):
+    """2 steps + save + load into a fresh system + 1 step == 3 steps (f32,
+    dropout off, SpecAugment and token replacement on: their draws follow
+    the step)."""
+    from tests.test_torch_train import tiny_batch
+    make = _train_tiny()
+    batches = [tiny_batch(seed=s) for s in range(3)]
+    straight = make()
+    for b in batches:
+        straight.train_step(b)
+
+    first = make()
+    for b in batches[:2]:
+        first.train_step(b)
+    mgr = tckpt.CheckpointManager(str(tmp_path))
+    mgr.save_state(first.step, first.state_tree())
+    assert mgr.latest_state_step() == 2
+    resumed = make()
+    resumed.init_state(torch.Generator().manual_seed(99))   # other weights first
+    resumed.load_state_tree(mgr.load_state())
+    assert resumed.step == 2
+    resumed.train_step(batches[2])
+    for (n, a), b in zip(straight.model.named_parameters(), resumed.model.parameters()):
+        assert torch.equal(a, b), n
+    for p, q in zip(straight.model.parameters(), resumed.model.parameters()):
+        sa, sb = straight.optimizer.state[p], resumed.optimizer.state[q]
+        assert sa["step"] == sb["step"] == 3
+        assert torch.equal(sa["exp_avg"], sb["exp_avg"])
+        assert torch.equal(sa["exp_avg_sq"], sb["exp_avg_sq"])
+
+
+def test_trainer_quick_test_writes_params_state_and_latest(tmp_path):
+    from tal_asrd_tpu_torch.train.loop import Trainer, TrainerConfig
+    from tal_asrd_tpu_torch.utils.logging import MetricsLogger
+    from tests.test_torch_train import tiny_batch
+    import json
+    tsys = _train_tiny()()
+    logger = MetricsLogger(out_dir=str(tmp_path / "logs"), name="t")
+    trainer = Trainer(tsys, TrainerConfig(quick_test=True,
+                                          checkpoint_dir=str(tmp_path / "ckpt")), logger)
+    trainer.fit([tiny_batch(), tiny_batch(seed=1)], [tiny_batch(seed=2)])
+    logger.close()
+    files = sorted(os.listdir(tmp_path / "ckpt"))
+    assert files == ["ckpt_00000001.msgpack", "latest.json", "state_00000001.msgpack"]
+    latest = json.load(open(tmp_path / "ckpt" / "latest.json"))
+    assert latest["step"] == 1 and latest["path"] == "ckpt_00000001.msgpack"
+    assert np.isfinite(latest["val_loss"])
+    state = tckpt.CheckpointManager(str(tmp_path / "ckpt")).load_state()
+    assert set(state) == {"step", "params", "opt_state"} and int(state["step"]) == 1
+    assert set(state["opt_state"]) == {"count", "mu", "nu"}
+    records = [json.loads(l) for l in open(tmp_path / "logs" / "t.metrics.jsonl")]
+    assert records[0]["step"] == 1 and np.isfinite(records[0]["loss"])
+
+
+def test_average_last_means_the_trees(tmp_path):
+    mgr = tckpt.CheckpointManager(str(tmp_path))
+    bf = lambda x: np.asarray(jnp.asarray(x, jnp.bfloat16)).view(np.uint16).view(
+        tckpt.BFLOAT16_BITS)
+    for step, v in ((1, 1.0), (2, 2.0), (3, 4.0)):
+        mgr.save(step, {"w": np.full((2, 2), v, np.float32), "b": bf(np.full(3, v))})
+    assert mgr.steps() == [1, 2, 3]
+    avg = mgr.average_last(2)
+    np.testing.assert_array_equal(avg["w"], np.full((2, 2), 3.0, np.float32))
+    assert tckpt.is_bfloat16_bits(avg["b"])
+    np.testing.assert_array_equal(to_tensor(avg["b"]).float().numpy(), np.full(3, 3.0))
+    np.testing.assert_array_equal(mgr.load()["w"], np.full((2, 2), 4.0, np.float32))

@@ -58,11 +58,13 @@ def test_no_source_line_imports_jax_or_the_jax_package():
     assert not hits, hits
 
 
-@pytest.mark.parametrize("target", ["ASRModel", "make_generate_fn"])
+@pytest.mark.parametrize("target", ["ASRModel", "make_generate_fn", "ASRSystem"])
 def test_entry_points_default_to_cuda(target):
     from tal_asrd_tpu_torch.decode.beam import make_generate_fn
     from tal_asrd_tpu_torch.models.asr import ASRModel
-    fn = {"ASRModel": ASRModel.__init__, "make_generate_fn": make_generate_fn}[target]
+    from tal_asrd_tpu_torch.train.system import ASRSystem
+    fn = {"ASRModel": ASRModel.__init__, "make_generate_fn": make_generate_fn,
+          "ASRSystem": ASRSystem.__init__}[target]
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
@@ -82,13 +84,19 @@ def test_cuda_tensor_never_reaches_the_plain_version():
     wrap neither the build nor the launch in a try."""
     import tal_asrd_tpu_torch.ops.cuda_decode as cd
     import tal_asrd_tpu_torch.ops.cuda_kernels as ck
-    for mod, wrapper, plain in ((cd, cd.fused_layer_step, "layer_step_plain"),
-                                (ck, ck.fused_logmel_project, "logmel_project_plain")):
+    import tal_asrd_tpu_torch.ops.specaug as sa
+    for wrapper, plain, counter in (
+            (cd.fused_layer_step, "layer_step_plain", cd.fused_layer_step),
+            (ck.fused_logmel_project, "logmel_project_plain", ck.fused_logmel_project),
+            (sa.spec_augment_seeded, "specaug_plain", sa.spec_augment)):
         src = inspect.getsource(wrapper)
         assert "try:" not in src and "except" not in src
         assert src.count(plain + "(") == 1
         before, after = src.split(plain + "(")
         assert 'device.type == "cpu"' in before.splitlines()[-2] + before.splitlines()[-1]
-        assert wrapper.launches == 0 or isinstance(wrapper.launches, int)
+        assert isinstance(counter.launches, int)
+    for fn in (sa._SpecAugmentK4.forward, sa._SpecAugmentK4.backward):
+        src = inspect.getsource(fn)
+        assert "try:" not in src and "specaug_plain" not in src
     assert "try:" not in inspect.getsource(__import__(
         "tal_asrd_tpu_torch.ops._build", fromlist=["x"]).load_library)
