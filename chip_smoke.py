@@ -9,8 +9,10 @@ Builds the port's CUDA kernels from tal_asrd_tpu_torch/csrc/ with nvcc, holds
 each against its plain PyTorch version on the card at the shapes its paths
 give it — the layer step K1 in bf16/f32 storage and with int8 cross K/V
 (kv8), int8 weights (w8) or both, the stacked all-layers step K3 in each of
-those modes, K3 against a chain of four K1 launches, the log-mel projection
-K2, SpecAugment K4 (bit for bit) — and times each. Then it drives the
+those modes, K3 against a chain of four K1 launches, K3's determinism (two
+launches, equal bits) with its cluster launch plan, the log-mel projection
+K2 (also at 1, 3 and 1003 rows), SpecAugment K4 (bit for bit) — and times
+each. Then it drives the
 serving path (`make_generate_fn`: log-mel -> TDS encoder -> fused decoder
 step -> beam search) at full width through each decoder configuration — the
 `2x` model (seeded weights) per layer, kv8, w8, kv8+w8, stacked and stacked
@@ -27,7 +29,7 @@ compute) and holds bf16 against f32 and grad_acc=2 against 1;
 reloads it, and decodes with both sets of weights through K1.
 
 Prints one JSON object per line: `device`, one `kernel` line per check,
-`k3_vs_k1_chain`, `kernel_timing`, one `serve_*` line per configuration,
+`k3_vs_k1_chain`, `k3_determinism`, `kernel_timing`, one `serve_*` line per configuration,
 `train_2x`, `train_1x_checkpoint`, `kernels` (every kernel of each path with
 its launch count in that path's one timed run, its error against the plain
 version, its time, the plain version's, a library call's where one exists,
@@ -51,9 +53,9 @@ import time
 import numpy as np
 
 # Published peaks of one H100 SXM (dense): device memory rate, f32 rate
-# outside the tensor cores, bf16 tensor-core rate.
+# outside the tensor cores, bf16 and TF32 tensor-core rates.
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32": 494.7e12}
 
 WINDOW_SAMPLES = 456_960          # 28.56 s at 16 kHz -> 2857 frames -> 340 enc frames
 SEED = 0
@@ -134,24 +136,31 @@ def check_logmel(torch, dev, b, samples=WINDOW_SAMPLES):
     torch.cuda.synchronize()
     ref = logmel_project_plain(power, fb, eps)
     err = float((out - ref).abs().max())
-    # a ragged row count exercises the partial last tile
-    out_r = fused_logmel_project(power[:1003].contiguous(), fb, eps)
-    err_r = float((out_r - ref[:1003]).abs().max())
+    # row counts below one 64-frame tile and across a ragged last tile
+    edge_errs = {}
+    for n_r in (1, 3, 1003):
+        out_r = fused_logmel_project(power[:n_r].contiguous(), fb, eps)
+        edge_errs[n_r] = float((out_r - ref[:n_r]).abs().max())
+    err_r = max(edge_errs.values())
     tol = 1e-5
     f, m = power.shape[1], fb.shape[1]
     ms = time_ms(lambda: fused_logmel_project(power, fb, eps), 20)
     plain_ms = time_ms(lambda: logmel_project_plain(power, fb, eps), 20)
     library_ms = time_ms(lambda: torch.log(power @ fb + eps), 20)
+    # K2 runs its products on the tensor cores in 3xTF32: three TF32 products
+    # for each f32 one
     bound_ms, bound_by = bound((n * f + f * m + n * m) * 4.0,
-                               2.0 * n * f * m, "float32")
+                               3 * 2.0 * n * f * m, "tf32")
     rec = {
         "phase": "kernel", "name": "fused_logmel_project", "route": "cuda",
         "source": "tal_asrd_tpu_torch/csrc/logmel_project.cu",
         "replaces": "tal_asrd_tpu/ops/pallas_kernels.py:48",
         "shape": {"N": n, "n_freqs": f, "n_mels": m}, "dtype": "float32",
-        "max_abs_err": max(err, err_r), "tolerance": tol,
+        "max_abs_err": max(err, err_r), "edge_max_abs_err": edge_errs, "tolerance": tol,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": library_ms,
+        "bound_by": bound_by, "library_ms": library_ms, "bound_share": bound_ms / ms,
+        "note": "bound: max(bytes / 3.35 TB/s, 3 x 2NFM / 494.7 TFLOP/s): 3xTF32 on "
+                "the tensor cores; library: torch.log(power @ fb + eps), f32 cuBLAS",
     }
     emit(rec)
     if not (np.isfinite(err) and max(err, err_r) <= tol):
@@ -406,6 +415,14 @@ def k3_step(op):
     return make(stacked_decoder_step), make(stacked_step_plain)
 
 
+def k3_plan():
+    """The launch plan of K3's last launch: G lanes per cluster of C CTAs."""
+    from tal_asrd_tpu_torch.ops.cuda_decode_stacked import stacked_decoder_step
+    p = stacked_decoder_step.last_plan
+    return {"group": p.group, "cluster": p.cluster, "clusters": p.clusters,
+            "ctas": p.ctas, "slots": p.slots, "waves": p.waves}
+
+
 def chained_errors(torch, kernel, plain, xs, ck, cv, h, first_index, dtype):
     """Three chained steps at first_index, +1, +2 through `kernel` and
     `plain` from copies of the same caches: max |kernel - plain| of x_out,
@@ -484,6 +501,8 @@ def check_decode_modes(torch, dev, name, b, d, h, s, l_buf, modes_k1, modes_k3):
                        "indices": [0, 1, 2, l_buf - 4, l_buf - 3, l_buf - 2],
                        "dtype": dt_name, "max_abs_err": errs, "tolerance": tol,
                        "attn_max": attn_max}
+                if kern == "K3":
+                    rec["plan"] = k3_plan()
                 emit(rec)
                 for key, t in tol.items():
                     if not errs[key] <= t:
@@ -534,6 +553,27 @@ def check_k3_against_k1_chain(torch, dev, name, b, d, h, s, l_buf):
                          f"fused_layer_step launches by {errs[key]} in {key} (> {t})")
             out[(mode, dt_name)] = errs
     return out
+
+
+def check_k3_determinism(torch, dev, name, b, d, h, s, l_buf):
+    """Two K3 launches on the same operands (the caches cloned) give equal
+    bits — x_out, attn and both caches — in bf16 and in kv8+w8, at the last
+    index of a decode."""
+    inp = seeded_decoder_inputs(torch, dev, SEED + 91 + b, b, d, s, l_buf)
+    equal = {}
+    for mode in ("none", "kv8+w8"):
+        op = realize(torch, inp, torch.bfloat16, mode)
+        k3 = k3_step(op)[0]
+        runs = [k3(op["xs"][0], op["ck"].clone(), op["cv"].clone(), l_buf - 2, h)
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        equal[mode] = all(torch.equal(a, r) for a, r in zip(*runs))
+    emit({"phase": "k3_determinism", "config": f"{name},B={b},S={s}", "dtype": "bfloat16",
+          "bit_equal": equal, "plan": k3_plan()})
+    bad = [m for m, ok in equal.items() if not ok]
+    if bad:
+        fail(f"stacked_decoder_step[{bad}, {name}, B={b}]: two launches on the same "
+             f"operands differ")
 
 
 def decode_bytes_flops(b, d, s, index, es, kv8, w8, n_layers):
@@ -588,11 +628,14 @@ def time_decode(torch, dev, kern, mode, b, d, h, s, l_buf, index, dtype):
     bytes_moved, flops = decode_bytes_flops(b, d, s, index, x.element_size(), kv8, w8,
                                             n_layers)
     bound_ms, bound_by = bound(bytes_moved, flops, str(dtype).replace("torch.", ""))
-    return {"ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "timed_shape": {"B": b, "D": d, "H": h, "S": s, "L": l_buf, "index": index,
-                            "n_layers": n_layers},
-            "bytes": bytes_moved}
+    rec = {"ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+           "timed_shape": {"B": b, "D": d, "H": h, "S": s, "L": l_buf, "index": index,
+                           "n_layers": n_layers},
+           "bytes": bytes_moved}
+    if kern == "K3":
+        rec["plan"] = k3_plan()
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -1102,7 +1145,8 @@ def kernel_entry(config, rec, launches_n, err, mode=None):
             "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"], "eager_ms": rec.get("eager_ms"),
-            "shape": rec.get("timed_shape", rec["shape"]), "dtype": rec["dtype"]}
+            "shape": rec.get("timed_shape", rec["shape"]), "dtype": rec["dtype"],
+            **({"plan": rec["plan"]} if "plan" in rec else {})}
 
 
 def serving_phases(torch, dev, root, args, k1, k2, checks, timed):
@@ -1259,10 +1303,12 @@ def main() -> None:
             if b != 40:                      # the greedy lanes: the kernels line's errors
                 checks[(name,) + key] = rec
     chain = check_k3_against_k1_chain(torch, dev, "2x", 32, 512, 4, 340, 97)
+    for name, d, b, l_buf in (("2x", 512, 32, 97), ("1x", 256, 8, 65), ("2x", 512, 40, 97)):
+        check_k3_determinism(torch, dev, name, b, d, 4, 340, l_buf)
     # timings at the greedy serving shapes, last step of the run
     timed = {}
     for name, b, d, l_buf in (("2x", 32, 512, 97), ("1x", 8, 256, 65)):
-        for kern, modes in (("K1", k1_modes), ("K3", ("none", "kv8+w8"))):
+        for kern, modes in (("K1", k1_modes), ("K3", k3_modes)):
             for mode in modes:
                 timed[(name, kern, mode)] = time_decode(
                     torch, dev, kern, mode, b, d, 4, 340, l_buf, l_buf - 2, bf16)
@@ -1272,10 +1318,11 @@ def main() -> None:
           "k3_vs_k1_chain": {f"{m},{dt}": e for (m, dt), e in chain.items()},
           **{f"{name},{kern},{mode}": {
               k: t[k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms", "bound_by",
-                                "timed_shape")} for (name, kern, mode), t in timed.items()},
-          "four_k1_ms": {name: 4 * k1[name]["ms"] for name in ("2x", "1x")},
-          "four_k1_kv8_w8_ms": {name: 4 * timed[(name, "K1", "kv8+w8")]["ms"]
-                                for name in ("2x", "1x")}})
+                                "timed_shape", "plan") if k in t}
+              for (name, kern, mode), t in timed.items()},
+          "four_k1_ms": {f"{name},{mode}": 4 * (k1[name] if mode == "none" else
+                                                timed[(name, "K1", mode)])["ms"]
+                         for name in ("2x", "1x") for mode in k3_modes}})
     if args.phases == "kernels":
         print("chip_smoke: kernel checks passed (serving phases skipped)", flush=True)
         return

@@ -1,6 +1,11 @@
-// Device code shared by the two fused decoder-step kernels:
-//   K1 layer_step.cu   — one ReZero decoder layer per launch
-//   K3 stacked_step.cu — every layer of the decoder in one launch
+// Device code of the fused decoder-step kernels:
+//   K1 layer_step.cu   — one ReZero decoder layer per launch (everything here)
+//   K3 stacked_step.cu — every layer of the decoder in one launch, on
+//     thread-block clusters; it takes from here only the operand plumbing
+//     (Elem, LayerOperands, StepParams, params_from, dispatch_types,
+//     allow_smem), not layer_body, whose STACKED = true rounding points it
+//     now computes itself. The K1 redesign (ROADMAP B) retires the per-lane
+//     code below, the STACKED branch with it.
 //
 // One ReZero decoder layer for one new token per lane (`layer_body`):
 //
@@ -32,7 +37,7 @@
 // Both round the input of every weight product to T, and the layer's output
 // x3 to T (K3 then feeds it to the next layer).
 //
-// Design: one thread block per lane, NTHREADS threads. The lane's residual
+// Design (K1): one thread block per lane, NTHREADS threads. The lane's residual
 // stream, the product inputs/outputs, the logit rows and the FF hidden stay in
 // shared memory. A weight product is a GEMV whose threads run along the
 // OUTPUT dimension with 16-byte loads (coalesced rows of [in, out] weights);

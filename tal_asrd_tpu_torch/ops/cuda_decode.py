@@ -195,9 +195,9 @@ def layer_step_plain(
 
 
 # ---------------------------------------------------------------------------
-# Launch plumbing shared with ops/cuda_decode_stacked.py. Both C entry points
-# take (dtype, w8, kv8, pointer table, dims, scale, stream); the table's order
-# is params_from's in csrc/decode_step.cuh.
+# Launch plumbing. The C entry point takes (dtype, w8, kv8, pointer table,
+# dims, scale, stream); the table's order is params_from's in
+# csrc/decode_step.cuh, which ops/cuda_decode_stacked.py's entry point shares.
 # ---------------------------------------------------------------------------
 _N_PTRS = 29
 _fns: Dict[str, object] = {}

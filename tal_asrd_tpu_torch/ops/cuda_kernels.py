@@ -1,4 +1,4 @@
-"""CUDA kernel of the frontend hot path: fused mel projection + log.
+"""CUDA kernel of the frontend hot path: fused mel projection + log (K2).
 
 Replaces the TPU kernel `fused_logmel_project` / `_logmel_kernel` of
 tal_asrd_tpu/ops/pallas_kernels.py: `log(power @ filterbank + eps)` with the
@@ -8,12 +8,13 @@ What bounds it on an H100: at the frontend's shapes (201 frequency bins, 80
 mels) the function moves 281 floats per frame and does 2*201*80 f32
 operations per frame, about 29 operations per byte — above the card's f32
 (non-tensor-core) ratio of ~20, so the f32 multiply-add rate is the floor,
-with the memory floor close behind. The design (csrc/logmel_project.cu)
-therefore reads each input once and writes each output once — filterbank
-staged in shared memory once per block, power tiles copied in with coalesced
-loads, the mel energies kept in registers until the log — and reuses every
-filterbank value across 8 frames per thread to cut shared-memory traffic per
-multiply-add. The 128-padding of 201 and 80 in the TPU kernel is TPU tiling
+with the memory floor close behind. The kernel (csrc/logmel_project.cu) is a
+persistent f32 GEMM with the log in its epilogue: one block per SM stages
+the filterbank once, double-buffers 64-frame tiles of `power` into shared
+memory with cp.async, and gives each thread a 4 frames x 4 mels register tile
+read with 16-byte shared-memory loads, so the FMA units, not shared memory,
+set its pace. The products are exact f32 FMAs on the CUDA cores, as in the
+plain version. The 128-padding of 201 and 80 in the TPU kernel is TPU tiling
 and is not carried over.
 
 `fused_logmel_project` launches the kernel for a CUDA tensor and takes the
@@ -71,18 +72,20 @@ def fused_logmel_project(power: torch.Tensor, filterbank: torch.Tensor,
         raise RuntimeError(f"unsupported device {power.device}")
     if power.dtype != torch.float32 or filterbank.dtype != torch.float32:
         raise TypeError("fused_logmel_project takes float32 tensors")
-    if not (power.is_contiguous() and filterbank.is_contiguous()):
-        raise ValueError("fused_logmel_project takes contiguous tensors")
+    if not (power.is_contiguous() and filterbank.is_contiguous()) \
+            or filterbank.data_ptr() % 16:
+        raise ValueError("fused_logmel_project takes contiguous tensors and a "
+                         "16-byte aligned filterbank")
     n, f = power.shape
     m = filterbank.shape[1]
-    if m * 4 > 1024:
-        raise ValueError(f"n_mels {m} exceeds the kernel's 256-column limit")
+    if m % 16 or m > 128:
+        raise ValueError(f"n_mels {m}: the kernel takes a multiple of 16 up to 128")
     out = torch.empty((n, m), dtype=torch.float32, device=power.device)
     with torch.cuda.device(power.device):
         props = torch.cuda.get_device_properties(power.device)
         err = _kernel()(
             power.data_ptr(), filterbank.data_ptr(), out.data_ptr(),
-            n, f, m, float(eps), 2 * props.multi_processor_count,
+            n, f, m, float(eps), props.multi_processor_count,
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"tal_logmel_project launch failed: CUDA error {err}")

@@ -50,3 +50,61 @@ def test_k4_equals_its_plain_version_and_counts_its_launches():
     spec = torch.randn((3, 37, 6), device="cuda", generator=gen)
     with pytest.raises(ValueError):
         spec_augment_seeded(draw_seeds(3, gen, "cuda"), spec, SpecAugmentConfig(freq_mask_param=4))
+
+
+@pytest.mark.gpu
+def test_k2_matches_its_plain_version_at_ragged_row_counts():
+    import torch
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: a CUDA kernel has no interpret mode")
+    from tal_asrd_tpu_torch.ops.cuda_kernels import fused_logmel_project, logmel_project_plain
+    from tal_asrd_tpu_torch.ops.logmel import mel_filterbank
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    fb = torch.from_numpy(mel_filterbank(201, 0.0, 8000.0, 80, 16000)).cuda()
+    for n in (1, 3, 63, 64, 65, 1003, 9000):
+        power = torch.rand((n, 201), device="cuda", generator=gen) ** 2
+        before = fused_logmel_project.launches
+        out = fused_logmel_project(power, fb, 1e-6)
+        assert fused_logmel_project.launches == before + 1
+        ref = logmel_project_plain(power, fb, 1e-6)
+        assert float((out - ref).abs().max()) <= 1e-5, n
+
+
+@pytest.mark.gpu
+def test_k3_is_deterministic_and_fills_the_card():
+    import torch
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: a CUDA kernel has no interpret mode")
+    from tal_asrd_tpu_torch.ops.cuda_decode import quantize_mem_kv, quantize_packed
+    from tal_asrd_tpu_torch.ops.cuda_decode_stacked import stack_packed, stacked_decoder_step
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    n_layers, b, d, h, s, cap = 2, 32, 512, 4, 340, 40
+    shapes = {"wqkv": (d, 3 * d), "wso": (d, d), "wcq": (d, d), "wco": (d, d),
+              "wf1": (d, 4 * d), "wf2": (4 * d, d)}
+
+    def randn(*shape):
+        return torch.randn(shape, device="cuda", generator=gen)
+
+    for w8, kv8 in ((False, False), (True, True)):
+        layers = []
+        for _ in range(n_layers):
+            w = {k: (randn(*sh) / sh[0] ** 0.5).to(torch.bfloat16) for k, sh in shapes.items()}
+            w.update({"b" + k[1:]: randn(sh[1]) * 0.1 for k, sh in shapes.items()})
+            w["rw"] = torch.full((2,), 0.3, device="cuda")
+            layers.append(quantize_packed(w) if w8 else w)
+        stacked = stack_packed(layers)
+        mk, mv = (randn(n_layers, b, s, d).to(torch.bfloat16) for _ in range(2))
+        sk = sv = None
+        if kv8:
+            qs = [quantize_mem_kv(mk[li], mv[li]) for li in range(n_layers)]
+            mk, sk, mv, sv = (torch.stack([q[i] for q in qs]) for i in range(4))
+        ck, cv = (randn(n_layers, b, cap, d).to(torch.bfloat16) for _ in range(2))
+        x = (randn(b, d) * 0.5).to(torch.bfloat16)
+        bias = torch.zeros((b, s), device="cuda")
+        runs = [stacked_decoder_step(x, stacked, ck.clone(), cv.clone(), mk, mv, bias, cap - 2,
+                                     h, sk, sv) for _ in range(2)]
+        for a, r in zip(*runs):
+            assert torch.equal(a, r)
+        # every cluster slot the card reports is used, in one wave
+        plan = stacked_decoder_step.last_plan
+        assert plan.clusters == min(plan.slots, b) and plan.waves == 1

@@ -80,6 +80,13 @@ def _mem(p, kv8):
 def test_pack_decoder_stacked_matches_jax(stack, w8):
     ref = j_pack_decoder_stacked(stack["params"], L, dtype=jnp.bfloat16, w8=w8)
     got = pack_decoder_stacked(stack["decoder"], torch.bfloat16, w8=w8)
+    # the port also keeps the weights in its tensor-core order (tc_*), which
+    # unpack to the [L, in, out] weights bit for bit
+    tc = {k: got.pop(k) for k in cuda_decode_stacked.TC_KEYS}
+    for key, t in tc.items():
+        w = got[key[3:]]
+        assert t.dtype == w.dtype and t.is_contiguous()
+        assert torch.equal(cuda_decode_stacked.fragment_unorder(t, *w.shape[1:]), w), key
     # the reference adds all-ones scales without w8 (one TPU kernel signature);
     # the port's kernel reads scales only for int8 weights and packs none
     assert set(got) == (set(ref) if w8 else {k for k in ref if not k.startswith("s")})
