@@ -9,8 +9,9 @@ Builds the port's CUDA kernels from tal_asrd_tpu_torch/csrc/ with nvcc, holds
 each against its plain PyTorch version on the card at the shapes its paths
 give it — the layer step K1 in bf16/f32 storage and with int8 cross K/V
 (kv8), int8 weights (w8) or both, the stacked all-layers step K3 in each of
-those modes, K3 against a chain of four K1 launches, K3's determinism (two
-launches, equal bits) with its cluster launch plan, the log-mel projection
+those modes (K1 and K3 are one cluster kernel at two sets of rounding
+points), K3 against a chain of four K1 launches, K1's and K3's determinism
+(two launches, equal bits) with their cluster launch plans, the log-mel projection
 K2 (also at 1, 3 and 1003 rows), SpecAugment K4 (bit for bit) — and times
 each. Then it drives the
 serving path (`make_generate_fn`: log-mel -> TDS encoder -> fused decoder
@@ -29,7 +30,7 @@ compute) and holds bf16 against f32 and grad_acc=2 against 1;
 reloads it, and decodes with both sets of weights through K1.
 
 Prints one JSON object per line: `device`, one `kernel` line per check,
-`k3_vs_k1_chain`, `k3_determinism`, `kernel_timing`, one `serve_*` line per configuration,
+`k3_vs_k1_chain`, `k1_determinism`, `k3_determinism`, `kernel_timing`, one `serve_*` line per configuration,
 `train_2x`, `train_1x_checkpoint`, `kernels` (every kernel of each path with
 its launch count in that path's one timed run, its error against the plain
 version, its time, the plain version's, a library call's where one exists,
@@ -252,8 +253,9 @@ def check_specaug(torch, dev, b, edge_cases=False):
 # Phase 3: fused_layer_step
 # ---------------------------------------------------------------------------
 def make_layer_inputs(torch, dev, rng, b, d, s, dtype):
-    """Seeded packed weights (ReZero scalars 0.3), cross K/V, pad bias and
-    three inputs x, from numpy."""
+    """Seeded packed weights (ReZero scalars 0.3; in bf16 also in fragment
+    order), cross K/V, pad bias and three inputs x, from numpy."""
+    from tal_asrd_tpu_torch.ops.cuda_decode import with_fragments
     f = 4 * d
 
     def mat(k, n):
@@ -266,10 +268,11 @@ def make_layer_inputs(torch, dev, rng, b, d, s, dtype):
             (rng.standard_normal(n) * 0.1).astype(np.float32)).to(dev)
 
     rw = torch.tensor([0.3, 0.3], dtype=torch.float32, device=dev)
-    w = {"wqkv": mat(d, 3 * d), "bqkv": vec(3 * d), "wso": mat(d, d),
-         "bso": vec(d), "wcq": mat(d, d), "bcq": vec(d), "wco": mat(d, d),
-         "bco": vec(d), "wf1": mat(d, f), "bf1": vec(f), "wf2": mat(f, d),
-         "bf2": vec(d), "rw": rw, "resweight": rw[0], "resweight_src": rw[1]}
+    w = with_fragments({
+        "wqkv": mat(d, 3 * d), "bqkv": vec(3 * d), "wso": mat(d, d), "bso": vec(d),
+        "wcq": mat(d, d), "bcq": vec(d), "wco": mat(d, d), "bco": vec(d),
+        "wf1": mat(d, f), "bf1": vec(f), "wf2": mat(f, d), "bf2": vec(d),
+        "rw": rw, "resweight": rw[0], "resweight_src": rw[1]})
     mk, mv = (torch.from_numpy(
         rng.standard_normal((b, s, d)).astype(np.float32)).to(dev).to(dtype)
         for _ in range(2))
@@ -316,7 +319,8 @@ def check_layer_step(torch, dev, name, b, d, h, s, l_buf, dtype, first_index):
            "shape": {"B": b, "D": d, "H": h, "S": s, "L": l_buf},
            "indices": [first_index, first_index + 1, first_index + 2],
            "dtype": str(dtype).replace("torch.", ""),
-           "max_abs_err": errs, "tolerance": tol, "attn_max": attn_max}
+           "max_abs_err": errs, "tolerance": tol, "attn_max": attn_max,
+           "plan": plan_of("K1")}
     emit(rec)
     for key, t in tol.items():
         if not errs[key] <= t:
@@ -368,17 +372,18 @@ def seeded_decoder_inputs(torch, dev, seed, b, d, s, l_buf):
 
 def realize(torch, inp, dtype, mode):
     """The operands of one storage dtype and int8 mode: per-layer packs
-    (int8 + scales under w8), their stack, and the cross K/V in `dtype`
+    (int8 + scales under w8; bf16 and int8 weights also in fragment order),
+    their stack, and the cross K/V in `dtype`
     (int8 + [L, D] scales under kv8, quantized layer by layer over the whole
     batch, as the serving path does)."""
     from tal_asrd_tpu_torch.ops.cuda_decode import (
-        WEIGHT_KEYS, quantize_mem_kv, quantize_packed)
+        WEIGHT_KEYS, quantize_mem_kv, quantize_packed, with_fragments)
     from tal_asrd_tpu_torch.ops.cuda_decode_stacked import stack_packed
     kv8, w8 = MODES[mode]
     packs = []
     for w in inp["layers"]:
         pk = {k: (t.to(dtype) if k in WEIGHT_KEYS else t) for k, t in w.items()}
-        packs.append(quantize_packed(pk) if w8 else pk)
+        packs.append(quantize_packed(pk) if w8 else with_fragments(pk))
     mk, mv = inp["mk"].to(dtype), inp["mv"].to(dtype)
     sk = sv = None
     if kv8:
@@ -415,12 +420,12 @@ def k3_step(op):
     return make(stacked_decoder_step), make(stacked_step_plain)
 
 
-def k3_plan():
-    """The launch plan of K3's last launch: G lanes per cluster of C CTAs."""
+def plan_of(kern):
+    """The launch plan of the last launch of K1 or K3: G lanes per cluster of
+    C CTAs."""
+    from tal_asrd_tpu_torch.ops.cuda_decode import fused_layer_step
     from tal_asrd_tpu_torch.ops.cuda_decode_stacked import stacked_decoder_step
-    p = stacked_decoder_step.last_plan
-    return {"group": p.group, "cluster": p.cluster, "clusters": p.clusters,
-            "ctas": p.ctas, "slots": p.slots, "waves": p.waves}
+    return (fused_layer_step if kern == "K1" else stacked_decoder_step).last_plan.as_dict()
 
 
 def chained_errors(torch, kernel, plain, xs, ck, cv, h, first_index, dtype):
@@ -501,8 +506,7 @@ def check_decode_modes(torch, dev, name, b, d, h, s, l_buf, modes_k1, modes_k3):
                        "indices": [0, 1, 2, l_buf - 4, l_buf - 3, l_buf - 2],
                        "dtype": dt_name, "max_abs_err": errs, "tolerance": tol,
                        "attn_max": attn_max}
-                if kern == "K3":
-                    rec["plan"] = k3_plan()
+                rec["plan"] = plan_of(kern)
                 emit(rec)
                 for key, t in tol.items():
                     if not errs[key] <= t:
@@ -555,25 +559,26 @@ def check_k3_against_k1_chain(torch, dev, name, b, d, h, s, l_buf):
     return out
 
 
-def check_k3_determinism(torch, dev, name, b, d, h, s, l_buf):
-    """Two K3 launches on the same operands (the caches cloned) give equal
-    bits — x_out, attn and both caches — in bf16 and in kv8+w8, at the last
-    index of a decode."""
+def check_determinism(torch, dev, kern, name, b, d, h, s, l_buf):
+    """Two launches of K1 (layer 0) or K3 on the same operands (the caches
+    cloned) give equal bits — x_out, attn and both caches — in bf16 and in
+    kv8+w8, at the last index of a decode."""
     inp = seeded_decoder_inputs(torch, dev, SEED + 91 + b, b, d, s, l_buf)
     equal = {}
     for mode in ("none", "kv8+w8"):
         op = realize(torch, inp, torch.bfloat16, mode)
-        k3 = k3_step(op)[0]
-        runs = [k3(op["xs"][0], op["ck"].clone(), op["cv"].clone(), l_buf - 2, h)
-                for _ in range(2)]
+        if kern == "K1":
+            step, ck, cv = k1_step(op)[0], op["ck"][0], op["cv"][0]
+        else:
+            step, ck, cv = k3_step(op)[0], op["ck"], op["cv"]
+        runs = [step(op["xs"][0], ck.clone(), cv.clone(), l_buf - 2, h) for _ in range(2)]
         torch.cuda.synchronize()
         equal[mode] = all(torch.equal(a, r) for a, r in zip(*runs))
-    emit({"phase": "k3_determinism", "config": f"{name},B={b},S={s}", "dtype": "bfloat16",
-          "bit_equal": equal, "plan": k3_plan()})
+    emit({"phase": f"{kern.lower()}_determinism", "config": f"{name},B={b},S={s}",
+          "dtype": "bfloat16", "bit_equal": equal, "plan": plan_of(kern)})
     bad = [m for m, ok in equal.items() if not ok]
     if bad:
-        fail(f"stacked_decoder_step[{bad}, {name}, B={b}]: two launches on the same "
-             f"operands differ")
+        fail(f"{kern}[{bad}, {name}, B={b}]: two launches on the same operands differ")
 
 
 def decode_bytes_flops(b, d, s, index, es, kv8, w8, n_layers):
@@ -632,9 +637,7 @@ def time_decode(torch, dev, kern, mode, b, d, h, s, l_buf, index, dtype):
            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
            "timed_shape": {"B": b, "D": d, "H": h, "S": s, "L": l_buf, "index": index,
                            "n_layers": n_layers},
-           "bytes": bytes_moved}
-    if kern == "K3":
-        rec["plan"] = k3_plan()
+           "bytes": bytes_moved, "plan": plan_of(kern)}
     return rec
 
 
@@ -1288,7 +1291,7 @@ def main() -> None:
     emit({"phase": "kernel_timing", "name": "fused_layer_step", "card": card,
           "note": "ms = CUDA-graph replay (device time); eager_ms = eager loop (includes the host)",
           **{key: {k: v[k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms",
-                                     "bound_by", "timed_shape")}
+                                     "bound_by", "timed_shape", "plan")}
              for key, v in k1.items()}})
 
     # ---- 3b. K1's int8 modes and K3 against their plain versions, at the -----
@@ -1304,7 +1307,8 @@ def main() -> None:
                 checks[(name,) + key] = rec
     chain = check_k3_against_k1_chain(torch, dev, "2x", 32, 512, 4, 340, 97)
     for name, d, b, l_buf in (("2x", 512, 32, 97), ("1x", 256, 8, 65), ("2x", 512, 40, 97)):
-        check_k3_determinism(torch, dev, name, b, d, 4, 340, l_buf)
+        for kern in ("K1", "K3"):
+            check_determinism(torch, dev, kern, name, b, d, 4, 340, l_buf)
     # timings at the greedy serving shapes, last step of the run
     timed = {}
     for name, b, d, l_buf in (("2x", 32, 512, 97), ("1x", 8, 256, 65)):

@@ -2,68 +2,40 @@
 // per lane, in one launch. Replaces the TPU kernel `fused_layer_step` /
 // `_layer_step_kernel` of tal_asrd_tpu/ops/pallas_decode.py.
 //
-// The layer's arithmetic, its rounding points and the device functions it is
-// built from are in decode_step.cuh (STACKED = false there). Storage types:
-// activations and self cache float or bf16; weights the same or int8 with
-// per-output-channel f32 scales (w8); cross K/V the same or int8 with
-// per-channel f32 scales (kv8).
+// The layer's arithmetic and its rounding points are in decode_step.cuh (K1:
+// the scaled query and the probabilities rounded to T before their products;
+// under kv8 the K scale folded into the query before that rounding and the V
+// scale on the f32 PV sum). Storage types: activations and self cache float
+// or bf16; weights the same or int8 with per-output-channel f32 scales (w8);
+// cross K/V the same or int8 with per-channel f32 scales (kv8).
 //
 // What bounds it on an H100: bytes. One launch does about 2 operations per
-// weight byte per lane (a GEMV per lane), far below the card's ~295
-// operations per byte in bf16, so the floor is the traffic: the layer's
-// weights (14*D^2 elements), the lanes' cross K/V (2*B*S*D) and the live
-// part of the self cache. int8 weights or K/V halve their share of it. The
-// design keeps every intermediate in shared memory, one thread block per lane
-// (grid = B, NTHREADS threads), writes the cache with an indexed store of one
-// row, reads only its live rows, and streams weights and K/V with coalesced
-// 16-byte loads. Weights do not fit an SM's shared memory (a 2x layer has
-// 6.3 MB in bf16), so every block re-reads them through L2, and only B of the
-// card's SMs are busy: what a later, faster version changes.
-#include "decode_step.cuh"
+// weight byte per lane, far below the card's ~295 operations per byte in
+// bf16, so the floor is the traffic: the layer's weights (14*D^2 elements,
+// 7.3 MB for a 2x layer in bf16), the lanes' cross K/V (2*B*S*D) and the live
+// part of the self cache. int8 weights or K/V halve their share of it.
+//
+// Design: the cluster kernel of cluster_step.cuh with n_layers = 1, at K1's
+// points (Points::K1). A cluster of up to 16 CTAs owns a group of lanes,
+// reads every weight once per cluster on the tensor cores (bf16) and
+// splits the attentions by (lane, head) across its CTAs; on an H100 7
+// clusters of 16 CTAs cover B = 8 to 56 lanes in one wave.
+#include "cluster_step.cuh"
 
-namespace {
-
-template <typename T, typename TW, typename TKV>
-__global__ void __launch_bounds__(NTHREADS)
-layer_step_kernel(const StepParams<T, TW, TKV> p) {
-  extern __shared__ __align__(16) float smem[];
-  const Smem m = smem_plan<T, TW, TKV>(smem, p.dims);
-  const int b = blockIdx.x;
-  load_lane(p.x, b, p.dims.D, p.dims.S, m);
-  layer_body<T, TW, TKV, false>(p.op, b, p.dims, p.bias + (size_t)b * p.dims.S,
-                                m, (float)p.dims.H);
-  store_lane(p.x_out, p.attn_out, b, p.dims.D, p.dims.S, m);
-}
-
-template <typename T, typename TW, typename TKV>
-int launch(const StepParams<T, TW, TKV>& p, cudaStream_t stream) {
-  if (p.dims.n_layers != 1 || !shapes_ok<T, TW, TKV>(p.dims))
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_floats<T, TW, TKV>(p.dims) * sizeof(float);
-  constexpr int MAX_DEVICES = 64;
-  static size_t allowed[MAX_DEVICES] = {};
-  const int err = allow_smem((const void*)layer_step_kernel<T, TW, TKV>, smem,
-                             allowed, MAX_DEVICES);
-  if (err != 0) return err;
-  layer_step_kernel<T, TW, TKV><<<p.dims.B, NTHREADS, smem, stream>>>(p);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
-
-// dtype: 0 = float32, 1 = bfloat16 storage; w8 / kv8: int8 weights / cross
-// K/V. `ptrs` holds N_PTRS device pointers in the order of params_from
-// (decode_step.cuh); `dims` = B, D, F, H, L, S, index, n_layers (= 1).
-// Returns cudaGetLastError() of the launch (0 = ok) or cudaErrorInvalidValue
-// for shapes or types the kernel does not take. Does not synchronise and
-// allocates nothing.
+// See cluster_step (cluster_step.cuh) for the arguments; dims[7] (n_layers)
+// must be 1, and every operand carries a leading layer axis of 1 (that is,
+// none: [B, L, D] caches, [B, S, D] cross K/V, [D] scales, rw [2]).
 extern "C" int tal_layer_step(int dtype, int w8, int kv8, const void* const* ptrs,
-                              const int* dims, float scale, void* stream) {
-  return dispatch_types(dtype, w8, kv8, [&](auto t, auto tw, auto tkv) {
-    using T = typename decltype(t)::type;
-    using TW = typename decltype(tw)::type;
-    using TKV = typename decltype(tkv)::type;
-    return launch(params_from<T, TW, TKV>(ptrs, dims, scale),
-                  (cudaStream_t)stream);
-  });
+                              const int* dims, float scale, int group, int cluster,
+                              int clusters, void* stream) {
+  if (dims[7] != 1) return (int)cudaErrorInvalidValue;
+  return cluster_step<Points::K1>(dtype, w8, kv8, ptrs, dims, scale, group, cluster,
+                                  clusters, stream);
+}
+
+// How many clusters of `cluster` CTAs of K1's instantiation the current
+// device holds at once, in *slots (cluster_slots, cluster_step.cuh).
+extern "C" int tal_layer_cluster_slots(int dtype, int w8, int kv8, const int* dims,
+                                       int group, int cluster, int* slots) {
+  return cluster_slots<Points::K1>(dtype, w8, kv8, dims, group, cluster, slots);
 }

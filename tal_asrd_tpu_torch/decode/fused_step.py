@@ -23,8 +23,10 @@ the tied factorized output head stay plain PyTorch. Prefill goes through the
 model's full-sequence path (it is large-matmul-bound) and its caches are
 viewed in the kernel layout ([B, L, H*dh], stacked under `stacked`).
 
-Layer weights are packed (and quantized under w8) once, at construction: the
-decoder holds its own [in, out] copies and does not follow later changes to
+Layer weights are packed (and quantized under w8) once, at construction,
+per layer or stacked: the decoder holds its own [in, out] copies and, in
+bf16 and int8, the same weights in the kernels' tensor-core order (`tc_*`,
+ops/cuda_decode.py::with_fragments), and does not follow later changes to
 the model's parameters.
 """
 from __future__ import annotations

@@ -1,15 +1,27 @@
-"""CPU tests of what surrounds the stacked decoder kernel K3 on the card: its
-launch plan (lanes per cluster, CTAs per cluster, clusters) and the
-tensor-core order of its packed weights. Neither needs a GPU."""
+"""CPU tests of what surrounds the cluster kernel of K1 and K3 on the card:
+its launch plan (lanes per cluster, CTAs per cluster, clusters), the
+tensor-core order of the packed weights, the operand checks and the shape
+rule. None needs a GPU."""
+import types
+
 import numpy as np
 import pytest
 import torch
 
+from tal_asrd_tpu_torch.ops.cuda_decode import (
+    TC_KEYS,
+    WEIGHT_KEYS,
+    check_cluster_shape,
+    check_operands,
+    pack_layer,
+    quantize_packed,
+)
 from tal_asrd_tpu_torch.ops.cuda_decode_stacked import (
     MAX_GROUP,
     LaunchPlan,
     fragment_order,
     fragment_unorder,
+    pack_decoder_stacked,
     stacked_launch_plan,
 )
 
@@ -68,3 +80,74 @@ def test_fragment_order_round_trips_and_places_the_mma_fragment(dtype):
         assert f[1, base + e] == w[1, k, col], e
     with pytest.raises(ValueError):
         fragment_order(w[:, :40])
+
+
+def _decoder(d=64, h=4, f=128, n_layers=2):
+    from tal_asrd_tpu_torch.models.decoder import RZDecoderLayer
+    torch.manual_seed(3)
+    return types.SimpleNamespace(
+        layers=[RZDecoderLayer(d, h, f, dropout=0.0).eval() for _ in range(n_layers)])
+
+
+@pytest.mark.parametrize("w8", [False, True], ids=["float", "w8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_packed_layers_carry_their_weights_in_fragment_order(dtype, w8):
+    """pack_layer (bf16) and quantize_packed (int8) store each weight also in
+    the tensor cores' order, as stack_packed does for every layer of K3."""
+    dec = _decoder()
+    packs = [pack_layer(layer, dtype) for layer in dec.layers]
+    if w8:
+        packs = [quantize_packed(w) for w in packs]
+    stacked = pack_decoder_stacked(dec, dtype, w8=w8)
+    for li, w in enumerate(packs):
+        if dtype == torch.float32 and not w8:     # the f32 kernel reads [in, out]
+            assert not any(k in w for k in TC_KEYS) and not any(k in stacked for k in TC_KEYS)
+            continue
+        for tk, wk in zip(TC_KEYS, WEIGHT_KEYS):
+            k, n = w[wk].shape
+            assert w[tk].dtype == w[wk].dtype and w[tk].shape == (k * n,), tk
+            assert torch.equal(w[tk], fragment_order(w[wk])), tk
+            assert torch.equal(fragment_unorder(w[tk], k, n), w[wk]), tk
+            assert torch.equal(stacked[tk][li], w[tk]), (li, tk)
+
+
+def test_stale_fragments_are_refused():
+    """A weight replaced without its fragments (an int8 wqkv beside the bf16
+    tc_wqkv), or fragments left out, is refused before any launch."""
+    b, d, s, cap, h = 2, 64, 8, 4, 4
+    w = pack_layer(_decoder().layers[0], torch.bfloat16)
+    x = torch.zeros((b, d), dtype=torch.bfloat16)
+    ck, cv = (torch.zeros((b, cap, d), dtype=torch.bfloat16) for _ in range(2))
+    mk, mv = (torch.zeros((b, s, d), dtype=torch.bfloat16) for _ in range(2))
+    bias = torch.zeros((b, s))
+
+    def operands(weights, w8):
+        return check_operands(x, weights, ck, cv, mk, mv, bias, 1, h, None, None, w8, False)
+
+    assert operands(w, False) == (b, d, 128, h, cap, s, 1, 1)
+    q = quantize_packed(w)
+    assert operands(q, True) == (b, d, 128, h, cap, s, 1, 1)
+    with pytest.raises(TypeError):            # tc_* still the bf16 fragments
+        operands(dict(q, **{k: w[k] for k in TC_KEYS}), True)
+    with pytest.raises(ValueError):
+        operands({k: v for k, v in w.items() if k != "tc_wf2"}, False)
+
+
+@pytest.mark.parametrize("case", [
+    ("2x", 512, 2048, 4, True), ("1x", 256, 1024, 4, True),
+    ("D % 32", 48, 192, 3, False), ("dh < 16", 64, 256, 8, False),
+    ("dh = 256", 1024, 4096, 4, False)], ids=lambda c: c[0])
+def test_one_shape_rule_for_k1_and_k3(case):
+    """Both wrappers check shapes with one rule, the C kernel's: D and F in
+    32s and 16 <= head_dim <= 192 (dh = 256 would pass a looser check and then
+    fail at launch), in every storage type and int8 mode."""
+    from tal_asrd_tpu_torch.ops import cuda_decode_stacked
+    assert cuda_decode_stacked.launch_step.__module__ == check_cluster_shape.__module__
+    _, d, f, h, ok = case
+    for dtype in (torch.float32, torch.bfloat16):
+        for kv8 in (False, True):
+            if ok:
+                check_cluster_shape(dtype, kv8, d, f, h)
+            else:
+                with pytest.raises(ValueError):
+                    check_cluster_shape(dtype, kv8, d, f, h)

@@ -108,3 +108,30 @@ def test_k3_is_deterministic_and_fills_the_card():
         # every cluster slot the card reports is used, in one wave
         plan = stacked_decoder_step.last_plan
         assert plan.clusters == min(plan.slots, b) and plan.waves == 1
+
+
+@pytest.mark.gpu
+def test_k1_matches_its_plain_version_in_every_mode_and_is_deterministic():
+    import torch
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: a CUDA kernel has no interpret mode")
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    from tal_asrd_tpu_torch.ops.cuda_decode import fused_layer_step
+    b, d, h, s, l_buf = 40, 256, 4, 340, 33       # the beam's lanes at 1x
+    inp = cs.seeded_decoder_inputs(torch, "cuda", 11, b, d, s, l_buf)
+    for dt in (torch.float32, torch.bfloat16):
+        for mode in cs.MODES:
+            op = cs.realize(torch, inp, dt, mode)
+            kernel, plain = cs.k1_step(op)
+            before = fused_layer_step.launches
+            errs, _ = cs.chained_errors(torch, kernel, plain, op["xs"], op["ck"][0], op["cv"][0],
+                                        h, l_buf - 4, dt)
+            assert fused_layer_step.launches == before + 3
+            for key, tol in cs.TOL[("K1", str(dt).replace("torch.", ""))].items():
+                assert errs[key] <= tol, (dt, mode, key, errs[key])
+            runs = [kernel(op["xs"][0], op["ck"][0].clone(), op["cv"][0].clone(), l_buf - 2, h)
+                    for _ in range(2)]
+            assert all(torch.equal(a, r) for a, r in zip(*runs)), (dt, mode)
+    plan = fused_layer_step.last_plan
+    assert plan.waves == 1 and plan.clusters == min(plan.slots, b)
