@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # everything, needs one card
     python3 chip_smoke.py --phases kernels   # build + kernel checks only
     python3 chip_smoke.py --phases train     # ... + the training phases, no serving
+    python3 chip_smoke.py --phases eval      # ... + the aligned evaluation only
 
 Builds the port's CUDA kernels from tal_asrd_tpu_torch/csrc/ with nvcc, holds
 each against its plain PyTorch version on the card at the shapes its paths
@@ -21,6 +22,16 @@ kv8+w8; the `1x` model (the tracked checkpoint
 accuracy_release/avg_last_3.bf16.msgpack) per layer and stacked kv8+w8 — and
 holds each against the unfused decoder.
 
+Then it runs the aligned evaluation (`eval_aligned_1x`): the port's eval
+CLI (`python -m tal_asrd_tpu_torch.cli.test`: test split -> AlignedDataset
+-> DataLoader -> EvalRunner -> teacher-forced loss + beam 5 with the
+speaker-embedding track -> test_result.pkl) on the tracked checkpoint over
+the synthetic test split (118 segments in batches of 64 and 54), unfused and
+with the fused decoder (K1), each scored to WER / WDER and held against the
+JAX CPU reference tests/fixtures/torch_aligned_eval_reference.json; K1 is
+checked before at that path's lanes (B = 320 and 270, S = 108, cache 38) and
+K2 at N = 64064.
+
 Then it drives the training path (`ASRSystem` + `Trainer.fit`: log-mel with
 K2 -> SpecAugment, kernel K4 -> TDS -> decoder -> masked cross entropy ->
 LAMB): `train_2x` trains the seeded 2x model at full width and depth for 10
@@ -31,7 +42,7 @@ reloads it, and decodes with both sets of weights through K1.
 
 Prints one JSON object per line: `device`, one `kernel` line per check,
 `k3_vs_k1_chain`, `k1_determinism`, `k3_determinism`, `kernel_timing`, one `serve_*` line per configuration,
-`train_2x`, `train_1x_checkpoint`, `kernels` (every kernel of each path with
+`eval_aligned_1x`, `train_2x`, `train_1x_checkpoint`, `kernels` (every kernel of each path with
 its launch count in that path's one timed run, its error against the plain
 version, its time, the plain version's, a library call's where one exists,
 and the least time the card could take), and last
@@ -680,13 +691,20 @@ def lockstep_trace(torch, model, fused, enc, prime, n_steps):
             "argmax_flips": flips, "unexcused_flips": unexcused}
 
 
-def rescore(torch, model, enc, tokens, p):
+def rescore(torch, model, enc, tokens, p, lengths=None):
     """Length-normalized teacher-forced score of each row of `tokens` under
-    the unfused full-sequence decoder: what a consistent search reports."""
+    the unfused full-sequence decoder: what a consistent search reports.
+    Row i counts its tokens p .. lengths[i] - 1 (all of them without
+    `lengths`) and is divided by its length."""
+    n = tokens.shape[1]
+    if lengths is None:
+        lengths = torch.full((tokens.shape[0],), n, device=tokens.device)
     logits, _ = model.decode(tokens[:, :-1], enc)
     logp = torch.log_softmax(logits.float(), dim=-1)
-    tok_lp = logp.gather(-1, tokens[:, 1:, None])[..., 0]       # [B, L-1]
-    return tok_lp[:, p - 1:].sum(dim=-1) / tokens.shape[1]
+    tok_lp = logp.gather(-1, tokens[:, 1:, None])[..., 0]       # [B, L-1]: token j at j-1
+    j = torch.arange(1, n, device=tokens.device)[None]
+    counted = (j >= p) & (j < lengths[:, None])
+    return (tok_lp * counted).sum(dim=-1) / lengths
 
 
 def first_divergence(a, b):
@@ -912,6 +930,186 @@ def speechlike_audio(rng, b, n):
             am = 0.5 * (1.0 + np.sin(2 * np.pi * rng.uniform(0.5, 4.0) * t))
             audio[lane] += (0.1 * am * np.sin(2 * np.pi * f0 * t)).astype(np.float32)
     return audio
+
+
+# ---------------------------------------------------------------------------
+# Phase 5b: the aligned evaluation of the tracked checkpoint (eval_aligned_1x)
+# ---------------------------------------------------------------------------
+# The synthetic test split as scripts/ensure_corpus.sh builds it; the CLI at
+# its defaults cuts it into 118 segments of 3-8.3 s, in two batches of 64
+# and 54 in the 10 s audio bucket (160000 samples, 1001 frames, S = 108
+# encoder frames) and the 32-token text bucket (max_new = 37, caches of 38).
+EVAL_SPLIT = dict(n_episodes=4, episode_seconds=180.0, n_speakers=8, seed=202)
+EVAL_SAMPLES = 160_000
+EVAL_S, EVAL_CAP = 108, 38
+EVAL_LANES = (320, 270)              # beam 5 x 64 and x 54
+EVAL_FIXTURE = os.path.join("tests", "fixtures", "torch_aligned_eval_reference.json")
+
+
+def check_eval_kernels(torch, dev):
+    """K1 (bf16, per layer) at the eval path's beam lanes, S = 108, cap 38, at
+    the first and the last indices, and timed at 320 lanes, last step; K2 at
+    N = 64 x 1001 = 64064 rows."""
+    k1 = {}
+    for b in EVAL_LANES:
+        worst = None
+        for first_index in (0, EVAL_CAP - 4):
+            rec = check_layer_step(torch, dev, f"eval_1x,B={b},S={EVAL_S},L={EVAL_CAP}",
+                                   b, 256, 4, EVAL_S, EVAL_CAP, torch.bfloat16, first_index)
+            if worst is not None:
+                for k, v in worst["max_abs_err"].items():
+                    rec["max_abs_err"][k] = max(rec["max_abs_err"][k], v)
+            worst = rec
+        k1[b] = worst
+    k1[EVAL_LANES[0]].update(time_decode(torch, dev, "K1", "none", EVAL_LANES[0], 256, 4,
+                                         EVAL_S, EVAL_CAP, EVAL_CAP - 2, torch.bfloat16))
+    k2 = check_logmel(torch, dev, 64, EVAL_SAMPLES)
+    return k1, k2
+
+
+def run_eval_aligned_1x(torch, dev, root, out_dir, card, k1_plans, trace=False):
+    """`python -m tal_asrd_tpu_torch.cli.test` on the card at its defaults
+    (batch 64, beam 5, segments of 3 s to 20 s) with the tracked checkpoint,
+    on the test split built by the port's build_synth_corpus: once unfused
+    and once with --fused-decode (K1 four launches a decode step), after an
+    unfused warm-up run that is neither counted nor timed. Each run
+    is scored by the port's convert_results + corpus WER / WDER, and every
+    chosen row's beam score is given back by teacher-forced rescoring under
+    the unfused model. Gates: fused within 0.5 points of unfused, unfused
+    within 1.0 point of the JAX CPU reference (EVAL_FIXTURE), rescoring
+    within 0.05, the launch counts. With `trace`, each run is repeated once
+    under torch.profiler (after its counted run)."""
+    from tal_asrd_tpu_torch.cli import test as cli_test
+    from tal_asrd_tpu_torch.data.aligned import AlignedDataset
+    from tal_asrd_tpu_torch.data.collate import BucketedCollater
+    from tal_asrd_tpu_torch.data.loader import DataLoader
+    from tal_asrd_tpu_torch.data.synth import build_synth_corpus
+    from tal_asrd_tpu_torch.decode.fused_step import FusedASRDecoder
+    from tal_asrd_tpu_torch.eval.convert import score_test_result
+    from tal_asrd_tpu_torch.ops.cuda_decode import fused_layer_step
+    from tal_asrd_tpu_torch.ops.cuda_kernels import fused_logmel_project
+    from tal_asrd_tpu_torch.text.bpe import BpeTokenizer
+
+    split = os.path.join(out_dir, "eval_split")
+    t0 = time.perf_counter()
+    build_synth_corpus(split, **EVAL_SPLIT)
+    split_seconds = time.perf_counter() - t0
+    bpe = os.path.join(root, "accuracy_release", "bpe.model")
+    ds = AlignedDataset(split, BpeTokenizer(model_path=bpe), num_utterances=1,
+                        min_segment_duration=3, max_segment_duration=20,
+                        speaker_map_loc=os.path.join(split, "speaker_map.json"),
+                        tokenizer_speakers=True, return_spk_ids=True)
+    batches = list(DataLoader(ds, 64, BucketedCollater(2), num_workers=0, drop_last=False))
+    audio_seconds = sum(float(b["audio_lens"].sum()) for b in batches) / 16000.0
+    with open(os.path.join(root, EVAL_FIXTURE)) as f:
+        ref = json.load(f)
+    with open(os.path.join(root, "ACCURACY.json")) as f:
+        published = json.load(f)
+
+    counters = {"fused_layer_step": fused_layer_step,
+                "fused_logmel_project": fused_logmel_project}
+    steps_taken = [0]
+    step_of = FusedASRDecoder.decode_step
+
+    def counted_step(self, *args, **kwargs):
+        steps_taken[0] += 1
+        return step_of(self, *args, **kwargs)
+
+    def cli_argv(name):
+        return ["--train-data", split, "--valid-data", split, "--test-data", split,
+                "--tokenizer", bpe, "--model-type", "1x", "--num-speakers", "8",
+                "--load", os.path.join(root, "accuracy_release", "avg_last_3.bf16.msgpack"),
+                "--out-dir", os.path.join(out_dir, f"eval_{name}"), "--device", dev
+                ] + (["--fused-decode"] if name == "fused" else [])
+
+    # Warm-up at this path's shapes, outside the counted and timed runs:
+    # cuDNN and cuBLAS pick their kernels for the encoder's shapes and the
+    # allocator grows (the first run in a process took ~4 s more).
+    cli_test.main(cli_argv("unfused"))
+    runs = {}
+    for name in ("unfused", "fused"):
+        out, argv = os.path.join(out_dir, f"eval_{name}"), cli_argv(name)
+        FusedASRDecoder.decode_step = counted_step
+        steps_taken[0] = 0
+        try:
+            # The main path's run: counts set to 0 just before it, read just after.
+            for fn in counters.values():
+                fn.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = cli_test.main(argv)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = {k: fn.launches for k, fn in counters.items()}
+        finally:
+            FusedASRDecoder.decode_step = step_of
+        plan = plan_of("K1") if name == "fused" else None
+        if trace:
+            profile_call(torch, f"eval_aligned_1x:{name}", cli_test.main, (argv,))
+        scored = score_test_result(os.path.join(out, "test_result.pkl"))
+
+        # every chosen row's score, rescored under the unfused model
+        model, gaps = res["runner"].model, []
+        with torch.inference_mode():
+            for batch, step in zip(batches, res["steps"]):
+                if not np.array_equal(batch["idx"], step["idx"]):
+                    fail(f"eval_aligned_1x[{name}]: the CLI's batches are not the loader's")
+                audio = torch.from_numpy(batch["audio"]).to(dev)
+                enc = model.encode(audio, torch.from_numpy(batch["audio_lens"]).to(dev))
+                lengths = torch.from_numpy(step["lengths"]).to(dev)
+                resc = rescore(torch, model, enc, torch.from_numpy(step["tokens"]).to(dev), 1,
+                               lengths)
+                gaps.append(float((resc.cpu() - torch.from_numpy(step["scores"])).abs().max()))
+        hyps = [step["tokens"][i, :step["lengths"][i]].tolist()
+                for step in res["steps"] for i in range(len(step["idx"]))]
+        equal = sum(h == r["tokens"] for h, r in zip(hyps, ref["segments"]))
+        runs[name] = {
+            "wer_pct": 100.0 * scored["overall_wer"], "wder_pct": 100.0 * scored["overall_wder"],
+            "n_words": int(sum(scored["n_words"])), "test_loss": res["test_loss"],
+            "seconds": secs, "audio_seconds_per_second": audio_seconds / secs,
+            "launches": launches, "decode_steps": steps_taken[0],
+            "rescore_max_gap": max(gaps),
+            "all_found": bool(all(step["found"].all() for step in res["steps"])),
+            "hypotheses_equal_to_reference": equal,
+            "hypotheses_equal_share": equal / len(hyps),
+            **({"k1_last_plan": plan} if plan else {})}
+        del res, model
+        torch.cuda.empty_cache()
+
+    u, fz = runs["unfused"], runs["fused"]
+    rec = {"phase": "eval_aligned_1x", "card": card, "segments": len(ds),
+           "batches": [len(b["idx"]) for b in batches], "audio_seconds": audio_seconds,
+           "split_seconds": split_seconds, "unfused": u, "fused": fz,
+           "k1_plans": k1_plans, "k2_rows": [len(b["idx"]) * (1 + EVAL_SAMPLES // 160)
+                                             for b in batches],
+           "reference_jax_cpu": {k: ref[k] for k in ("wer_pct", "wder_pct", "test_loss",
+                                                     "n_segments")},
+           "accuracy_json_f32_checkpoint": {"wer_pct": published["wer_pct"],
+                                            "wder_pct": published["wder_pct"]},
+           "note": "accuracy_json_f32_checkpoint: the f32 checkpoint's figures, "
+                   "not in the repository; printed, no gate"}
+    emit(rec)
+    n_batches = len(batches)
+    if len(ds) != ref["n_segments"] or rec["batches"] != [64, 54]:
+        fail(f"eval_aligned_1x: {len(ds)} segments in batches {rec['batches']}, "
+             f"expected {ref['n_segments']} in [64, 54]")
+    for name, r in runs.items():
+        k1_want = 4 * r["decode_steps"] if name == "fused" else 0
+        want = {"fused_layer_step": k1_want, "fused_logmel_project": 2 * n_batches}
+        if r["launches"] != want or (name == "fused" and r["decode_steps"] < 2 * n_batches):
+            fail(f"eval_aligned_1x[{name}]: launches {r['launches']} after "
+                 f"{r['decode_steps']} fused decode steps, expected {want}")
+        if r["rescore_max_gap"] > 0.05 or not np.isfinite(r["test_loss"]):
+            fail(f"eval_aligned_1x[{name}]: beam scores disagree with teacher-forced "
+                 f"rescoring by {r['rescore_max_gap']} (> 0.05), loss {r['test_loss']}")
+    for key in ("wer_pct", "wder_pct"):
+        if abs(fz[key] - u[key]) > 0.5:
+            fail(f"eval_aligned_1x: fused {key} {fz[key]} is more than 0.5 points from "
+                 f"unfused {u[key]}")
+        if abs(u[key] - ref[key]) > 1.0:
+            fail(f"eval_aligned_1x: unfused {key} {u[key]} is more than 1.0 point from "
+                 f"the JAX CPU reference's {ref[key]}")
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -1211,13 +1409,14 @@ def serving_phases(torch, dev, root, args, k1, k2, checks, timed):
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="all", choices=("all", "kernels", "train"),
+    ap.add_argument("--phases", default="all", choices=("all", "kernels", "train", "eval"),
                     help="'kernels' stops after the build and the kernel checks; "
-                         "'train' skips the serving phases")
+                         "'train' skips the serving and eval phases; 'eval' runs "
+                         "eval_aligned_1x after the kernel checks, nothing else")
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one fused greedy generate per model and one "
-                         "2x training step with torch.profiler and print where the "
-                         "time goes")
+                    help="also trace one fused greedy generate per model, each eval "
+                         "CLI run and one 2x training step with torch.profiler and "
+                         "print where the time goes")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -1327,14 +1526,46 @@ def main() -> None:
           "four_k1_ms": {f"{name},{mode}": 4 * (k1[name] if mode == "none" else
                                                 timed[(name, "K1", mode)])["ms"]
                          for name in ("2x", "1x") for mode in k3_modes}})
+    # ---- 3c. K1 and K2 at the eval path's shapes --------------------------------
+    k1_eval, k2_eval = check_eval_kernels(torch, dev)
+    emit({"phase": "kernel_timing", "name": "fused_layer_step", "card": card,
+          "of": "eval_aligned_1x", "note": "ms = CUDA-graph replay, per launch",
+          **{k: k1_eval[EVAL_LANES[0]][k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms",
+                                                      "bound_by", "timed_shape", "plan")},
+          "plans": {str(b): k1_eval[b]["plan"] for b in EVAL_LANES}})
     if args.phases == "kernels":
         print("chip_smoke: kernel checks passed (serving phases skipped)", flush=True)
         return
     out_dir = os.path.join(root, "out", "chip_smoke")
     shutil.rmtree(out_dir, ignore_errors=True)
-    serve_entries = []
+    entries = []
     if args.phases == "all":
-        serve_entries = serving_phases(torch, dev, root, args, k1, k2, checks, timed)[1]
+        entries += serving_phases(torch, dev, root, args, k1, k2, checks, timed)[1]
+
+    # ---- 5b. the aligned evaluation ------------------------------------------
+    if args.phases in ("all", "eval"):
+        ev = run_eval_aligned_1x(torch, dev, root, out_dir, card,
+                                 {str(b): k1_eval[b]["plan"] for b in EVAL_LANES},
+                                 trace=args.profile)
+        # K1's record at 320 lanes (timed there) with the worst error of both
+        # lane counts
+        k1_rec = dict(k1_eval[EVAL_LANES[0]], max_abs_err={
+            k: max(k1_eval[b]["max_abs_err"][k] for b in EVAL_LANES)
+            for k in k1_eval[EVAL_LANES[0]]["max_abs_err"]})
+        entries += [
+            kernel_entry("eval_aligned_1x:fused", k1_rec,
+                         ev["fused"]["launches"]["fused_layer_step"],
+                         k1_rec["max_abs_err"]["x_out"], "none"),
+            kernel_entry("eval_aligned_1x:fused", k2_eval,
+                         ev["fused"]["launches"]["fused_logmel_project"],
+                         k2_eval["max_abs_err"]),
+            kernel_entry("eval_aligned_1x:unfused", k2_eval,
+                         ev["unfused"]["launches"]["fused_logmel_project"],
+                         k2_eval["max_abs_err"])]
+    if args.phases == "eval":
+        shutil.rmtree(out_dir, ignore_errors=True)
+        finish(torch, entries, card, t_start)
+        return
 
     # ---- 6-7. the training path ------------------------------------------------
     t2 = run_train_2x(torch, dev, out_dir, trace=args.profile)
@@ -1344,7 +1575,7 @@ def main() -> None:
     # path gave it: train_1x_checkpoint trains at B=8 x 20 s and generates at
     # B=8 x 28.56 s, 32 tokens
     t1_train, t1_gen = t1["train_launches"], t1["generate_launches"]
-    entries = serve_entries + [
+    entries += [
         kernel_entry("train_2x", k2["train_2x"], t2["launches"]["fused_logmel_project"],
                      k2["train_2x"]["max_abs_err"]),
         kernel_entry("train_2x", k4["train_2x"], t2["launches"]["spec_augment"],
@@ -1359,6 +1590,11 @@ def main() -> None:
                      t1_gen["fused_layer_step"], k1["train_1x"]["max_abs_err"]["x_out"],
                      "none"),
     ]
+    finish(torch, entries, card, t_start)
+
+
+def finish(torch, entries, card, t_start) -> None:
+    """The `kernels` line, then the contract line."""
     never = [(e["config"], e["name"]) for e in entries if e["launches"] <= 0]
     if never:
         fail(f"a kernel of a path was never launched: {never}")

@@ -1,7 +1,7 @@
 """Typed configuration for the frontend, the model, SpecAugment, training
 and decoding.
 
-Own copy of the dataclasses the serving and training paths read
+Own copy of the dataclasses the serving, training and evaluation paths read
 (counterpart: tal_asrd_tpu/core/config.py). Field names and defaults are the
 same, so a test can build both packages' configs from one set of keyword
 arguments. Fields that only select a TPU lowering (`use_pallas`,
@@ -143,12 +143,48 @@ class TrainConfig:
 
 @dataclass(frozen=True)
 class DecodeConfig:
-    """Decoding knobs of the serving path. The reference's fields for the
-    unaligned sliding-window decoder, LM fusion and the non-causal parity mode
-    arrive when those paths are ported."""
+    """Decoding knobs, the reference's fields. The paths that read some of
+    them are not ported yet: those fields are accepted at their defaults only,
+    and any other value raises NotImplementedError naming the ROADMAP item
+    that ports the path."""
 
     beam_size: int = 5
     max_length: int = 512
+    # LM shallow fusion weight (ROADMAP A14)
+    lm_weight: float = 0.0
+    # The unaligned sliding-window decoder's state machine (ROADMAP A9)
+    chunk_size: int = 357     # encoder frames per window (~28.5 s of audio)
+    thresh_prct: float = 0.5
+    shift_prct: float = 0.25
+    stall_patience: int = 25
+    rep_n: int = 5
+    skip_prct: float = 0.1
+    max_iters: int = 20000
+    history_evict_block: int = 64
+    eos_advance: bool = False
+    stall_rollback: bool = False
+    # 'causal': KV-cached causal decoding; 'noncausal_ref', the reference's
+    # bidirectional prefix re-encode per step, is ROADMAP A11.
+    self_attn_mode: str = "causal"
     # Run per-token decode steps through the fused layer-step kernel
     # (ops/cuda_decode.py) — speaker-token models only.
     use_fused_decode: bool = False
+
+    def __post_init__(self):
+        for name, item in _UNPORTED_DECODE_FIELDS.items():
+            default = DecodeConfig.__dataclass_fields__[name].default
+            if getattr(self, name) != default:
+                raise NotImplementedError(
+                    f"DecodeConfig.{name}={getattr(self, name)!r}: only the default "
+                    f"{default!r} is supported until ROADMAP {item} is ported")
+
+
+# Fields read only by paths not ported yet, and the ROADMAP item of each path.
+_UNPORTED_DECODE_FIELDS = {
+    "lm_weight": "A14 (LM shallow fusion)",
+    **{name: "A9 (the unaligned state machine)" for name in (
+        "chunk_size", "thresh_prct", "shift_prct", "stall_patience", "rep_n",
+        "skip_prct", "max_iters", "history_evict_block", "eos_advance",
+        "stall_rollback")},
+    "self_attn_mode": "A11 (the non-causal reference mode)",
+}

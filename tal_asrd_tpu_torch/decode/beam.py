@@ -15,16 +15,23 @@ the device; the host reads one flag per step (are all slots done?).
     continuation written into a dead slot is lost. Kept for parity; each
     retired row is stored into a fixed [B, K] finished pool;
   * length-normalized selection at the end (score / row length), considering
-    the live rows too under `force_output`.
+    the live rows too under `force_output`;
+  * with `collect_spk_embed`, the expected speaker embedding of each step
+    (f32 softmax over the last `num_speakers` logits x the speaker rows of
+    the tied embedding table, from the decoder's `speaker_rows()`, stored in
+    bf16), a track reordered with the beams, copied into the finished pool
+    at retirement and returned as `spk_embed` for the chosen row. As in the
+    reference, a step's row is written in the order of the beams BEFORE the
+    reorder: new row r gets the expectation of old row r, not of the beam it
+    continues.
 
 `torch.topk` does not promise an order among equal values where the
 reference's top-k takes the lower index. Equal scores arise only among
 -1e30 entries (dead or not-yet-fanned-out beams), whose rows never reach the
 output, so no tie-break is added.
 
-Not ported yet (raise NotImplementedError): LM shallow fusion and the
-`collect_spk` / `collect_spk_embed` tracks (they need models/lm.py and the
-speaker head).
+Not ported yet (raise NotImplementedError): LM shallow fusion (ROADMAP A14)
+and the speaker-head logits track `collect_spk` (A12.2).
 """
 from __future__ import annotations
 
@@ -49,6 +56,8 @@ class BeamSearchSpec:
     force_output: bool = False
     collect_spk: bool = False
     num_speakers: int = 0
+    # Track the expected speaker embedding per emitted token (speaker-token
+    # models).
     collect_spk_embed: bool = False
 
 
@@ -60,17 +69,20 @@ def beam_search(
     lm=None,
 ) -> Dict[str, torch.Tensor]:
     """Run beam search. `model` is an ASRModel or a FusedASRDecoder (anything
-    with `init_decode_state` and `decode_step`). Returns device tensors:
-      tokens   [B, P + max_new]   best row per batch item
-      lengths  [B]                valid row length (incl. prime and EOS)
-      scores   [B]                length-normalized score of the chosen row
-      found    [B]                whether any beam terminated
+    with `init_decode_state` and `decode_step`, and `speaker_rows` under
+    `collect_spk_embed`). Returns device tensors:
+      tokens     [B, P + max_new]      best row per batch item
+      lengths    [B]                   valid row length (incl. prime and EOS)
+      scores     [B]                   length-normalized score of the chosen row
+      found      [B]                   whether any beam terminated
+      spk_embed  [B, max_new, E] bf16  expected speaker embedding per step
+                                       (under collect_spk_embed)
     """
     if lm is not None or spec.lm_weight > 0:
-        raise NotImplementedError("LM shallow fusion is not ported yet")
-    if spec.collect_spk or spec.collect_spk_embed:
+        raise NotImplementedError("LM shallow fusion is not ported yet (ROADMAP A14)")
+    if spec.collect_spk:
         raise NotImplementedError(
-            "the speaker tracks (collect_spk, collect_spk_embed) are not ported yet")
+            "the speaker-head logits track (collect_spk) is not ported yet (ROADMAP A12.2)")
     b, p = prime.shape
     k = spec.beam_size
     v = spec.vocab_size
@@ -112,6 +124,15 @@ def beam_search(
     fin_len = torch.zeros((b, k), dtype=torch.long, device=device)
     fin_valid = torch.zeros((b, k), dtype=torch.bool, device=device)
     batch_offset = (torch.arange(b, device=device) * k)[:, None]  # [B, 1]
+    if spec.collect_spk_embed:
+        spk_rows = model.speaker_rows().to(device=device, dtype=torch.float32)  # [S, E]
+        if spk_rows.shape[0] != spec.num_speakers or spec.num_speakers < 1:
+            raise ValueError(f"collect_spk_embed: spec.num_speakers={spec.num_speakers}, "
+                             f"but the model has {spk_rows.shape[0]} speaker rows")
+        emb_track = torch.zeros((bk, spec.max_new_tokens, spk_rows.shape[1]),
+                                dtype=torch.bfloat16, device=device)
+        fin_emb = torch.zeros((b, k) + emb_track.shape[1:], dtype=torch.bfloat16,
+                              device=device)
 
     step = 0
     while step < spec.max_new_tokens and not bool(done.all()):
@@ -129,6 +150,11 @@ def beam_search(
             state = dict(state)
             state["caches"] = _gather(state["caches"], cache_axis, flat_beams)
         tokens[:, p + step] = best_tok.reshape(-1)
+        if spec.collect_spk_embed:
+            probs = torch.softmax(logits[:, v - spec.num_speakers:].to(torch.float32), dim=-1)
+            if k > 1:
+                emb_track = emb_track.index_select(0, flat_beams)
+            emb_track[:, step] = (probs @ spk_rows).to(torch.bfloat16)
 
         # Retirement: slots whose chosen token is EOS and that are not already
         # dead store their row and die. Slot done flags are NOT reordered.
@@ -140,6 +166,9 @@ def beam_search(
         fin_norm = torch.where(newly_bk, scores / float(row_len), fin_norm)
         fin_len = torch.where(newly_bk, row_len, fin_len)
         fin_valid = fin_valid | newly_bk
+        if spec.collect_spk_embed:
+            fin_emb = torch.where(newly_bk[..., None, None],
+                                  emb_track.reshape(fin_emb.shape), fin_emb)
         done = done | is_eos
         step += 1
 
@@ -158,17 +187,23 @@ def beam_search(
         fin_tokens = torch.where(take_live[..., None],
                                  tokens.reshape(b, k, -1), fin_tokens)
         fin_len = torch.where(take_live, p + step, fin_len)
+        if spec.collect_spk_embed:
+            fin_emb = torch.where(take_live[..., None, None],
+                                  emb_track.reshape(fin_emb.shape), fin_emb)
         fin_valid = fin_valid | live_valid
 
     sel_norm = torch.where(fin_valid, fin_norm, NEG_INF)
     best = sel_norm.argmax(dim=1)                                        # [B]
     rows = torch.arange(b, device=device)
-    return {
+    out = {
         "tokens": fin_tokens[rows, best],
         "lengths": fin_len[rows, best],
         "scores": fin_norm[rows, best],
         "found": fin_valid.any(dim=1),
     }
+    if spec.collect_spk_embed:
+        out["spk_embed"] = fin_emb[rows, best]
+    return out
 
 
 def _gather(tree, axis: int, index: torch.Tensor):

@@ -4,7 +4,8 @@ decoder-step kernels (ops/cuda_decode.py, ops/cuda_decode_stacked.py).
 Counterpart of tal_asrd_tpu/decode/fused_step.py. `FusedASRDecoder` offers
 the four methods the decode loops use — `init_decode_state`, `decode_step`,
 `precompute_mem_kvs`, `decode_prefill` — so it can be passed in place of the
-model into decode/beam.py `beam_search`. Only the per-token inner step
+model into decode/beam.py `beam_search` (with `speaker_rows`, which the
+speaker-embedding track reads). Only the per-token inner step
 changes: one kernel launch per layer (or one for the whole stack) instead of
 some twenty small operators per layer.
 
@@ -74,6 +75,9 @@ class FusedASRDecoder:
             "FusedASRDecoder is decode-only; run ASRModel.encode separately")
 
     # -- decode surface --------------------------------------------------
+    def speaker_rows(self) -> torch.Tensor:
+        return self.model.speaker_rows()
+
     def init_decode_state(self, encoder_out: Dict[str, Any], batch: int,
                           max_len: int) -> Dict[str, Any]:
         mem = encoder_out["encoder_out"]
@@ -119,10 +123,17 @@ class FusedASRDecoder:
         x = self.model.embed_tokens(y_tok[:, 0]) + self._pe[idx]   # [B, D]
         mem = state["mem_kvs"]
 
+        # The pad bias [B, S] is carried in the state beside the mask it was
+        # built from, and built again when the state holds another mask object
+        # (dict(state, mask=...)) or the lanes or the window's length changed
+        # (a None mask stays None when the cross K/V are swapped for another
+        # window). Masks are never written in place.
+        mask = state["mask"]
+        s = mem["k"].shape[2] if self.stacked else mem[0]["k"].shape[1]
         bias = state.get("mem_bias")
-        if bias is None:  # built at the first step, then carried in the state
-            s = mem["k"].shape[2] if self.stacked else mem[0]["k"].shape[1]
-            bias = self._pad_bias(state["mask"], x.shape[0], s, x.device)
+        if bias is None or state["mem_bias_of"] is not mask or \
+                tuple(bias.shape) != (x.shape[0], s):
+            bias = self._pad_bias(mask, x.shape[0], s, x.device)
 
         if self.stacked:
             caches = state["caches"]
@@ -147,7 +158,8 @@ class FusedASRDecoder:
             attn_mean = attn_sum / len(self.packed)
 
         logits = self.model.output_logits(x)
-        new_state = dict(state, caches=new_caches, index=idx + 1, mem_bias=bias)
+        new_state = dict(state, caches=new_caches, index=idx + 1, mem_bias=bias,
+                         mem_bias_of=mask)
         return logits, None, attn_mean, new_state
 
     @staticmethod

@@ -41,7 +41,7 @@ from tal_asrd_tpu_torch.models.decoder import (
     RZDecoder,
     sinusoidal_positions,
 )
-from tal_asrd_tpu_torch.models.layers import Linear
+from tal_asrd_tpu_torch.models.layers import Linear, lecun_normal_
 from tal_asrd_tpu_torch.models.tds import TDS
 from tal_asrd_tpu_torch.ops.logmel import log_mel_spectrogram
 from tal_asrd_tpu_torch.ops.specaug import spec_augment_seeded
@@ -118,26 +118,23 @@ class ASRModel(nn.Module):
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         """The reference's initial distribution, drawn from a CPU
-        `generator` (the global RNG if None): matrices and conv kernels
-        normal with std 1/sqrt(fan_in), the embedding table uniform in
-        +-1/sqrt(embed_dim), biases and the ReZero scalars zero. With the
-        scalars at zero every decoder branch is multiplied away, so parity
-        probes set them to a non-zero value first."""
+        `generator` (the global RNG if None): matrices, conv kernels and
+        `embedding_proj` lecun_normal (models/layers.py), the embedding table
+        uniform in +-1/sqrt(embed_dim), biases and the ReZero scalars zero.
+        With the scalars at zero every decoder branch is multiplied away, so
+        parity probes set them to a non-zero value first."""
         for name, p in self.named_parameters():
             if p.dim() <= 1:
                 p.zero_()
-                continue
-            # drawn in f32 on the CPU (a CPU generator), wherever p lives
-            t = torch.empty(p.shape, dtype=torch.float32)
-            if name == "embedding.weight":
+            elif name == "embedding.weight":
+                # drawn in f32 on the CPU (a CPU generator), wherever p lives
                 bound = 1.0 / p.shape[1] ** 0.5
-                t.uniform_(-bound, bound, generator=generator)
-            elif name == "embedding_proj":
-                t.normal_(std=1.0 / p.shape[0] ** 0.5, generator=generator)
+                p.copy_(torch.empty(p.shape, dtype=torch.float32).uniform_(
+                    -bound, bound, generator=generator))
+            elif name == "embedding_proj":          # [E, D], fan_in E
+                lecun_normal_(p, p.shape[0], generator)
             else:  # Linear [out, in] or conv [C_out, C_in / G, K]
-                fan_in = p[0].numel()
-                t.normal_(std=1.0 / fan_in ** 0.5, generator=generator)
-            p.copy_(t)
+                lecun_normal_(p, p[0].numel(), generator)
 
     # ------------------------------------------------------------------
     # Encoder side
@@ -206,6 +203,12 @@ class ASRModel(nn.Module):
         if self.cfg.embed_size:
             e = e @ self.embedding_proj.to(e.dtype)
         return e
+
+    def speaker_rows(self) -> torch.Tensor:
+        """The speaker tokens' rows of the tied embedding table [S, E] (the
+        last num_speakers ids), as beam search's collect_spk_embed track
+        reads them."""
+        return self.embedding.weight[self.cfg.num_tokens - self.cfg.num_speakers:]
 
     def output_logits(self, h: torch.Tensor) -> torch.Tensor:
         """Tied factorized head: h -> embed space -> vocab."""

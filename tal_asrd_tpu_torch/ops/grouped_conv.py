@@ -14,11 +14,11 @@ the input's dtype, so f32 parameters can train under bf16 compute.
 """
 from __future__ import annotations
 
-import math
-
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from tal_asrd_tpu_torch.models.layers import lecun_normal_
 
 
 class GroupedConv1D(nn.Module):
@@ -44,7 +44,7 @@ class GroupedConv1D(nn.Module):
         c_pg = in_features // groups
         self.weight = nn.Parameter(torch.empty(features, c_pg, kernel))
         # lecun_normal, as the reference: fan_in = kernel * c_in_per_group
-        nn.init.normal_(self.weight, std=1.0 / math.sqrt(kernel * c_pg))
+        lecun_normal_(self.weight, kernel * c_pg)
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -88,11 +88,23 @@ def test_beam_search_takes_encoder_out_directly(world):
 
 @pytest.mark.parametrize("field", ["lm_weight", "collect_spk", "collect_spk_embed"])
 def test_unported_beam_options_raise(world, field):
+    """LM fusion and the speaker-head track still raise. The speaker-embedding
+    track is ported (its parity with JAX: tests/test_torch_runner.py): it
+    runs when the spec names the model's speakers and refuses a spec that
+    does not."""
     spec = world["spec"](BeamSearchSpec, 1, True, -1)
     setattr(spec, field, 0.5 if field == "lm_weight" else True)
-    with pytest.raises(NotImplementedError):
-        make_generate_fn(world["tmodel"], spec, device="cpu")(
-            world["audio"], world["lens"], world["prime"])
+    gen = make_generate_fn(world["tmodel"], spec, device="cpu")
+    args = (world["audio"], world["lens"], world["prime"])
+    if field != "collect_spk_embed":
+        with pytest.raises(NotImplementedError):
+            gen(*args)
+        return
+    with pytest.raises(ValueError, match="num_speakers"):
+        gen(*args)
+    spec.num_speakers = world["tmodel"].cfg.num_speakers
+    out = make_generate_fn(world["tmodel"], spec, device="cpu")(*args)
+    assert out["spk_embed"].shape == (BATCH, MAX_NEW, 64)
 
 
 def test_generate_defaults_to_cuda():

@@ -28,7 +28,8 @@ from tal_asrd_tpu_torch.ops.cuda_decode_stacked import (
 
 @pytest.mark.parametrize("sm_count", [132, 114, 8])
 def test_launch_plan_covers_every_lane_once(sm_count):
-    for b in range(1, 257):
+    # every batch up to 256, and the eval CLI's beam lanes (64 and 54 segments x 5)
+    for b in list(range(1, 257)) + [270, 320]:
         plan = stacked_launch_plan(b, sm_count)
         groups = plan.groups(b)
         lanes = [lane for g in groups for lane in g]
@@ -56,6 +57,13 @@ def test_launch_plan_fills_the_card_at_the_serving_shapes():
     # more lanes than fit in one wave: MAX_GROUP lanes a cluster, fewest waves
     big = stacked_launch_plan(256, 132, h100)
     assert (big.group, big.cluster, big.waves) == (MAX_GROUP, 8, 3)
+    # the eval CLI's beam-5 lanes: 320 (a batch of 64) and 270 (the tail of
+    # 54) in clusters of MAX_GROUP lanes, 3 waves of the 15 slots of 8 CTAs
+    assert stacked_launch_plan(320, 132, h100) == LaunchPlan(MAX_GROUP, 8, 40, 15)
+    assert stacked_launch_plan(270, 132, h100) == LaunchPlan(MAX_GROUP, 8, 34, 15)
+    for b in (270, 320):
+        plan = stacked_launch_plan(b, 132, h100)
+        assert plan.waves == 3 and sorted({len(g) for g in plan.groups(b)}) in ([7, 8], [8])
     with pytest.raises(RuntimeError):
         stacked_launch_plan(4, 132, slots={16: 0, 8: 0})
 

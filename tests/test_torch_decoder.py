@@ -149,3 +149,39 @@ def test_enc_posenc_gate_matches_jax():
 def test_speaker_head_is_not_ported():
     with pytest.raises(NotImplementedError):
         ASRModel(ModelConfig(use_speaker_head=True, **TINY), device="cpu")
+
+
+def test_initial_weights_are_the_references_truncated_lecun_normal():
+    """flax's lecun_normal: a normal cut at +-2 and scaled by 1/0.8796, std
+    1/sqrt(fan_in), no value beyond 2.2737/sqrt(fan_in) — in the helper on a
+    large draw and in every matrix, conv kernel and embedding_proj of a
+    freshly initialised model (the embedding table is uniform)."""
+    import math
+
+    from tal_asrd_tpu_torch.models.layers import lecun_normal_
+    from tal_asrd_tpu_torch.ops.grouped_conv import GroupedConv1D
+
+    def cut(fan_in):
+        return 2.0 / 0.87962566103423978 / math.sqrt(fan_in)
+
+    n, fan_in = 400_000, 50
+    t = lecun_normal_(torch.empty(n), fan_in, torch.Generator().manual_seed(0))
+    assert float(t.abs().max()) <= cut(fan_in) * (1 + 1e-6)
+    assert float(t.abs().max()) > 0.99 * cut(fan_in)           # it reaches the cut
+    # sampling error of the std of n draws: < 1/sqrt(2n) relative
+    assert abs(float(t.std()) * math.sqrt(fan_in) - 1.0) < 5 / math.sqrt(2 * n)
+    assert abs(float(t.mean())) * math.sqrt(fan_in) < 5 / math.sqrt(n)
+
+    model = ASRModel(ModelConfig(**TINY), dtype=torch.float32, device="cpu",
+                     generator=torch.Generator().manual_seed(1))
+    checked = 0
+    for name, p in model.named_parameters():
+        if p.dim() < 2 or name == "embedding.weight":
+            continue
+        fan = p.shape[0] if name == "embedding_proj" else p[0].numel()
+        assert float(p.abs().max()) <= cut(fan) * (1 + 1e-6), name
+        checked += 1
+    assert checked > 10
+    conv = GroupedConv1D(80, 800, 21, groups=80)
+    assert float(conv.weight.abs().max()) <= cut(21) * (1 + 1e-6)
+    assert abs(float(conv.weight.std()) * math.sqrt(21) - 1.0) < 0.02

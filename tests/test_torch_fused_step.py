@@ -239,3 +239,32 @@ def test_pack_decoder_packs_every_layer(decoder_pair):
     assert len(packed) == 4
     assert packed[0]["wqkv"].dtype == torch.bfloat16 and packed[0]["bqkv"].dtype == torch.float32
     assert packed[0]["wf1"].shape == (32, 128) and packed[0]["wf2"].shape == (128, 32)
+
+
+@pytest.mark.parametrize("stacked", [False, True], ids=["per_layer", "stacked"])
+def test_fused_decoder_rebuilds_the_pad_bias_when_the_mask_changes(decoder_pair, stacked):
+    """A state whose mask is swapped between steps (dict(state, mask=...), as a
+    window shift does) decodes as the unfused model does with the same
+    masks: the pad bias carried in the state follows the new mask, and a
+    None mask gives no padding."""
+    _, _, tmodel, _, t_enc = decoder_pair
+    dec = FusedASRDecoder(tmodel, stacked=stacked)
+    s = t_enc["encoder_out"].shape[1]
+    first = t_enc["encoder_padding_mask"]
+    second = torch.zeros_like(first)
+    second[:, s // 2:] = True                          # half of every window padded
+    toks = torch.from_numpy(np.random.default_rng(7).integers(
+        0, tmodel.cfg.num_tokens, size=(3, 4))).long()
+    with torch.no_grad():
+        f_state = dec.init_decode_state(t_enc, 3, 8)
+        u_state = tmodel.init_decode_state(t_enc, 3, 8)
+        for step, mask in enumerate((first, second, second, None)):
+            f_state, u_state = dict(f_state, mask=mask), dict(u_state, mask=mask)
+            f_logits, _, f_attn, f_state = dec.decode_step(toks[:, step:step + 1], f_state)
+            u_logits, _, u_attn, u_state = tmodel.decode_step(toks[:, step:step + 1], u_state)
+            np.testing.assert_allclose(f_logits.numpy(), u_logits.numpy(), rtol=2e-4,
+                                       atol=ATOL, err_msg=f"step {step}")
+            np.testing.assert_allclose(f_attn.numpy(), u_attn.numpy(), rtol=0, atol=ATOL,
+                                       err_msg=f"step {step}")
+            if mask is not None:
+                assert float(f_attn[mask].abs().max()) == 0.0

@@ -135,3 +135,41 @@ def test_k1_matches_its_plain_version_in_every_mode_and_is_deterministic():
             assert all(torch.equal(a, r) for a, r in zip(*runs)), (dt, mode)
     plan = fused_layer_step.last_plan
     assert plan.waves == 1 and plan.clusters == min(plan.slots, b)
+
+
+@pytest.mark.gpu
+def test_eval_cli_runs_eight_segments_through_k1_and_k2(tmp_path):
+    """`python -m tal_asrd_tpu_torch.cli.test --fused-decode` on the card, with
+    the tracked checkpoint, on the first 8 segments of the synthetic test
+    split: the reference's output files, finite loss, every row ended in
+    EOS, K2 twice a batch and K1 four times a decode step."""
+    import pickle
+
+    import torch
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: a CUDA kernel has no interpret mode")
+    from tal_asrd_tpu_torch.cli.test import main
+    from tal_asrd_tpu_torch.data.synth import build_synth_corpus
+    from tal_asrd_tpu_torch.ops.cuda_decode import fused_layer_step
+    from tal_asrd_tpu_torch.ops.cuda_kernels import fused_logmel_project
+    split, out = str(tmp_path / "test"), str(tmp_path / "out")
+    transcripts = build_synth_corpus(split, n_episodes=1, episode_seconds=60.0, n_speakers=8,
+                                     seed=202)
+    with open(os.path.join(split, "transcript.pkl"), "wb") as f:
+        # 11 utterances, 3 of them shorter than 3 s: 8 segments
+        pickle.dump({"ep0": transcripts["ep0"][:11]}, f)
+    fused_layer_step.launches = fused_logmel_project.launches = 0
+    res = main(["--train-data", split, "--valid-data", split, "--test-data", split,
+                "--tokenizer", os.path.join(ROOT, "accuracy_release", "bpe.model"),
+                "--model-type", "1x", "--num-speakers", "8", "--fused-decode",
+                "--load", os.path.join(ROOT, "accuracy_release", "avg_last_3.bf16.msgpack"),
+                "--out-dir", out])
+    assert [len(s["idx"]) for s in res["steps"]] == [8]
+    assert res["steps"][0]["found"].all() and torch.isfinite(torch.tensor(res["test_loss"]))
+    assert fused_logmel_project.launches == 2
+    assert fused_layer_step.launches > 0 and fused_layer_step.launches % 4 == 0
+    with open(os.path.join(out, "test_result.pkl"), "rb") as f:
+        assert len(pickle.load(f)) == 8
+    for name in ("hyp.txt", "ref.txt"):
+        with open(os.path.join(out, name)) as f:
+            assert len(f.read().splitlines()) == 8

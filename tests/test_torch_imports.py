@@ -58,13 +58,21 @@ def test_no_source_line_imports_jax_or_the_jax_package():
     assert not hits, hits
 
 
-@pytest.mark.parametrize("target", ["ASRModel", "make_generate_fn", "ASRSystem"])
+@pytest.mark.parametrize("target", ["ASRModel", "make_generate_fn", "ASRSystem",
+                                    "EvalRunner", "cli.test"])
 def test_entry_points_default_to_cuda(target):
+    from tal_asrd_tpu_torch.cli.args import get_argparser
     from tal_asrd_tpu_torch.decode.beam import make_generate_fn
+    from tal_asrd_tpu_torch.eval.runner import EvalRunner
     from tal_asrd_tpu_torch.models.asr import ASRModel
     from tal_asrd_tpu_torch.train.system import ASRSystem
+    if target == "cli.test":       # python -m tal_asrd_tpu_torch.cli.test: --device
+        args = get_argparser().parse_args(
+            ["--train-data", "d", "--valid-data", "d", "--tokenizer", "t", "--model-type", "1x"])
+        assert args.device == "cuda"
+        return
     fn = {"ASRModel": ASRModel.__init__, "make_generate_fn": make_generate_fn,
-          "ASRSystem": ASRSystem.__init__}[target]
+          "ASRSystem": ASRSystem.__init__, "EvalRunner": EvalRunner.__init__}[target]
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
