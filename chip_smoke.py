@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases kernels   # build + kernel checks only
     python3 chip_smoke.py --phases train     # ... + the training phases, no serving
     python3 chip_smoke.py --phases eval      # ... + the aligned evaluation only
+    python3 chip_smoke.py --phases unaligned # ... + the long-form evaluation only
 
 Builds the port's CUDA kernels from tal_asrd_tpu_torch/csrc/ with nvcc, holds
 each against its plain PyTorch version on the card at the shapes its paths
@@ -32,6 +33,17 @@ JAX CPU reference tests/fixtures/torch_aligned_eval_reference.json; K1 is
 checked before at that path's lanes (B = 320 and 270, S = 108, cache 38) and
 K2 at N = 64064.
 
+Then it runs the long-form evaluation (`eval_unaligned_1x`): the eval CLI
+with --unaligned over the same split's 4 episodes of 180 s, both legs — the
+sliding-window state machine (the 4 equal-length episodes encoded together,
+K2 at N = 72004; each episode's windows of 357 encoder frames and history of
+512 tokens, K1 at B = 1) and VAD windows decoded by beam 5 in [16, bucket]
+batches (K1 at 80 lanes, S = 46 / 108) — unfused and fused, each scored
+under keys of its own leg and held against the JAX CPU reference
+tests/fixtures/torch_unaligned_eval_reference.json. K1 and K2 are checked
+before at that path's shapes, and K1 continuing from the state machine's
+prefill (`check_prefill_handoff`).
+
 Then it drives the training path (`ASRSystem` + `Trainer.fit`: log-mel with
 K2 -> SpecAugment, kernel K4 -> TDS -> decoder -> masked cross entropy ->
 LAMB): `train_2x` trains the seeded 2x model at full width and depth for 10
@@ -42,7 +54,8 @@ reloads it, and decodes with both sets of weights through K1.
 
 Prints one JSON object per line: `device`, one `kernel` line per check,
 `k3_vs_k1_chain`, `k1_determinism`, `k3_determinism`, `kernel_timing`, one `serve_*` line per configuration,
-`eval_aligned_1x`, `train_2x`, `train_1x_checkpoint`, `kernels` (every kernel of each path with
+`eval_aligned_1x`, `prefill_handoff`, `eval_unaligned_1x`, `train_2x`,
+`train_1x_checkpoint`, `kernels` (every kernel of each path with
 its launch count in that path's one timed run, its error against the plain
 version, its time, the plain version's, a library call's where one exists,
 and the least time the card could take), and last
@@ -1113,6 +1126,369 @@ def run_eval_aligned_1x(torch, dev, root, out_dir, card, k1_plans, trace=False):
 
 
 # ---------------------------------------------------------------------------
+# Phase 5c: the long-form evaluation of the tracked checkpoint (eval_unaligned_1x)
+# ---------------------------------------------------------------------------
+# The CLI's --unaligned legs over the same split. The state machine encodes
+# the 4 equal-length episodes together (K2 at N = 4 x 18001 rows) and runs
+# each through windows of chunk_size = 357 encoder frames and a history of
+# max_positions = 512 tokens: K1 takes one cache index per launch, so a lane
+# decodes alone (B = 1, S = 357, caches of 512). The VAD leg decodes the
+# windows in [16, bucket] batches, beam 5: K1 at 80 lanes with S = 46, 108,
+# 233 and caches of 33, 61, 121 (5, 10, 20 s buckets; max_new 32, 60, 120),
+# K2 at N = 16 x 501, 1001, 2001.
+UNALIGNED_FIXTURE = os.path.join("tests", "fixtures", "torch_unaligned_eval_reference.json")
+SM_GROUP, SM_EPISODE_SAMPLES = 4, 2_880_000
+SM_S, SM_CAP = 357, 512
+SM_LANES = (1, 4)                    # 1: the path's; 4: the group's lanes side by side
+VAD_LANES = 80                       # 16 windows x beam 5
+VAD_SHAPES = ((5, 80_000, 46, 33), (10, 160_000, 108, 61), (20, 320_000, 233, 121))
+HANDOFF_HISTORY = (1, 64, 448)       # 448 = 512 - 64: the history after an eviction
+
+
+def worst_of(records):
+    """The first record with each error the worst over all of them."""
+    rec = dict(records[0])
+    rec["max_abs_err"] = {k: max(r["max_abs_err"][k] for r in records)
+                          for k in records[0]["max_abs_err"]}
+    rec["indices"] = sorted({i for r in records for i in r["indices"]})
+    return rec
+
+
+def check_unaligned_kernels(torch, dev):
+    """K1 (bf16, per layer) at the long-form path's shapes — the state
+    machine's lanes (B = 1, 4; S = 357; cache 512) at the first index, the
+    middle and cap - 1, the VAD leg's 80 lanes at each bucket's S and cache,
+    first and last indices — each timed; K2 at the state machine's group
+    (N = 72004) and at each VAD bucket (N = 16 x frames)."""
+    k1, k2 = {}, {}
+    for b in SM_LANES:
+        k1[("sm", b)] = worst_of([
+            check_layer_step(torch, dev, f"eval_unaligned_1x:sm,B={b},S={SM_S},L={SM_CAP}",
+                             b, 256, 4, SM_S, SM_CAP, torch.bfloat16, first)
+            for first in (0, SM_CAP // 2 - 2, SM_CAP - 3)])
+    k1[("sm", 1)].update(time_decode(torch, dev, "K1", "none", 1, 256, 4, SM_S, SM_CAP,
+                                     SM_CAP // 2 - 1, torch.bfloat16))
+    for secs, _, s, cap in VAD_SHAPES:
+        k1[("vad", secs)] = worst_of([
+            check_layer_step(torch, dev, f"eval_unaligned_1x:vad,B={VAD_LANES},S={s},L={cap}",
+                             VAD_LANES, 256, 4, s, cap, torch.bfloat16, first)
+            for first in (0, cap - 4)])
+        k1[("vad", secs)].update(time_decode(torch, dev, "K1", "none", VAD_LANES, 256, 4, s,
+                                             cap, cap - 2, torch.bfloat16))
+    k2["sm"] = check_logmel(torch, dev, SM_GROUP, SM_EPISODE_SAMPLES)
+    for secs, samples, _, _ in VAD_SHAPES:
+        k2[("vad", secs)] = check_logmel(torch, dev, 16, samples)
+    return k1, k2
+
+
+def check_prefill_handoff(torch, dev, model, card):
+    """FusedASRDecoder.decode_prefill writes the caches through the model's
+    full-sequence path; K1 continues from them at every window event of the
+    state machine. On one 357-frame window of the tracked checkpoint's
+    encoder output (the last 20 frames padded) and a history of L tokens
+    (L = 1, 64, 448; the rest of the 512-token buffer other tokens): the
+    prefill, then one token step, each layer through K1 and through its
+    plain version on the same inputs (the chain carried on by the plain
+    version), per layer and under kv8 (the prefill dequantizes the int8
+    cross K/V). Gate: K1's bf16 limits (TOL)."""
+    from tal_asrd_tpu_torch.decode.fused_step import FusedASRDecoder
+    from tal_asrd_tpu_torch.ops.cuda_decode import fused_layer_step, layer_step_plain
+
+    rng = np.random.default_rng(SEED + 17)
+    audio = torch.from_numpy(speechlike_audio(rng, 1, 480_000)).to(dev)
+    tol = TOL[("K1", "bfloat16")]
+    out = {}
+    with torch.inference_mode():
+        window = model.encode(audio)["encoder_out"][:, :SM_S]
+        if window.shape[1] != SM_S:
+            fail(f"prefill hand-off: a window of {window.shape[1]} frames, not {SM_S}")
+        mask = torch.zeros((1, SM_S), dtype=torch.bool, device=dev)
+        mask[:, -20:] = True
+        hist = torch.from_numpy(rng.integers(3, 300, (1, SM_CAP))).to(dev)
+        for kv8 in (False, True):
+            fused = FusedASRDecoder(model, kv8=kv8)
+            mem = fused.precompute_mem_kvs(window)
+            bias = fused._pad_bias(mask, 1, SM_S, window.device)
+            for hl in HANDOFF_HISTORY:
+                _, attn_all, caches = fused.decode_prefill(hist, mem, mask, SM_CAP)
+                if not bool(caches[0]["k"][:, :hl].float().abs().sum(-1).gt(0).all()):
+                    fail(f"prefill hand-off: the prefill left empty cache rows below {hl}")
+                x = model.embed_tokens(hist[:, hl]) + fused._pe[hl]
+                errs = {k: 0.0 for k in ("x_out", "attn", "cache", "x_out_ulps", "cache_ulps")}
+                for li, w in enumerate(fused.packed):
+                    kv, c = mem[li], caches[li]
+                    runs = [fn(x, w, c["k"].clone(), c["v"].clone(), kv["k"], kv["v"], bias, hl,
+                               4, kv.get("sk"), kv.get("sv"))
+                            for fn in (fused_layer_step, layer_step_plain)]
+                    torch.cuda.synchronize()
+                    (xk, ak, ckk, cvk), (xp, ap, ckp, cvp) = runs
+                    for key, a, r in (("x_out", xk, xp), ("attn", ak, ap),
+                                      ("cache", ckk, ckp), ("cache", cvk, cvp)):
+                        diff = (a.float() - r.float()).abs()
+                        errs[key] = max(errs[key], float(diff.max()))
+                        if key + "_ulps" in errs:
+                            errs[key + "_ulps"] = max(errs[key + "_ulps"], float(
+                                (diff / bf16_ulp(r.float())).max()))
+                    x = xp
+                out[(kv8, hl)] = errs
+                for key, t in tol.items():
+                    if not errs[key] <= t:
+                        fail(f"prefill hand-off[kv8={kv8}, history {hl}]: K1 {key} differs "
+                             f"from its plain version by {errs[key]} (> {t})")
+    emit({"phase": "prefill_handoff", "card": card, "window": SM_S, "cache": SM_CAP,
+          "tolerance": tol, "errors": {f"{'kv8' if k else 'bf16'},history={h}": e
+                                       for (k, h), e in out.items()}})
+    return out
+
+
+def vad_near_ties(torch, dev, vad_calls):
+    """Where the fused and the unfused VAD runs part. Per batch of windows
+    (the same batches in both runs): the rows whose chosen tokens differ,
+    and for each the gap between the two rows' length-normalized scores
+    under the unfused model (teacher-forced), printed; and a greedy decode
+    of the batch by both decoders in lockstep (`lockstep_trace`), whose
+    argmax flips must each lie within twice the logit deviation of a tie
+    (a gate)."""
+    from tal_asrd_tpu_torch.decode.fused_step import FusedASRDecoder
+
+    model = vad_calls["model"]
+    fused = FusedASRDecoder(model)
+    differing, gaps, steps, flips, unexcused = 0, [0.0], 0, 0, []
+    with torch.inference_mode():
+        for cu, cf in zip(vad_calls["unfused"], vad_calls["fused"]):
+            enc = model.encode(torch.from_numpy(cu["audio"]).to(dev),
+                               torch.from_numpy(cu["lens"]).to(dev))
+            tr = lockstep_trace(torch, model, fused, enc,
+                                torch.from_numpy(cu["prime"]).to(dev), cu["tokens"].shape[1] - 1)
+            steps, flips = steps + tr["steps"], flips + len(tr["argmax_flips"])
+            unexcused += tr["unexcused_flips"]
+            rows = [r for r in range(len(cu["lens"])) if cu["lens"][r] > 1 and not torch.equal(
+                cu["tokens"][r, :cu["lengths"][r]], cf["tokens"][r, :cf["lengths"][r]])]
+            for r in rows:
+                one = {k: (v[r:r + 1] if torch.is_tensor(v) else v) for k, v in enc.items()}
+                su, sf = (float(rescore(torch, model, one, c["tokens"][r:r + 1].to(dev), 1,
+                                        c["lengths"][r:r + 1].to(dev)))
+                          for c in (cu, cf))
+                gaps.append(abs(su - sf))
+            differing += len(rows)
+    return {"windows": sum(int((c["lens"] > 1).sum()) for c in vad_calls["unfused"]),
+            "differing_rows": differing, "max_score_gap_of_differing_rows": max(gaps),
+            "greedy_lockstep_steps": steps, "greedy_argmax_flips": flips,
+            "unexcused_flips": unexcused}
+
+
+def run_eval_unaligned_1x(torch, dev, root, out_dir, card, trace=False):
+    """`python -m tal_asrd_tpu_torch.cli.test --unaligned [--vad-windows]`
+    on the card with the tracked checkpoint over the synthetic test split:
+    each leg once unfused and once with --fused-decode (K1 four launches a
+    decode step), after an unfused warm-up run of that leg that is neither
+    counted nor timed. Each run is scored by the port's convert_results +
+    corpus WER / WDER under keys of its own leg (unaligned_sm_*,
+    unaligned_vad_*) and held against the JAX CLI's figures on the CPU
+    (UNALIGNED_FIXTURE). Gates: the VAD windows equal the reference's, VAD
+    unfused within 1.0 point of it, fused within 0.5 of unfused (or, where
+    not, both within 0.5 of the reference, on either side of it), no
+    fused-vs-unfused greedy flip wider than twice the logit deviation
+    (`vad_near_ties`, which also prints the windows whose chosen rows
+    differ), each chosen beam row re-earned by teacher-forced rescoring
+    within 0.05; the state machine unfused within 2.0 (WER) / 3.0
+    (WDER) points of the reference, fused within 2.0 / 3.0 of unfused,
+    every episode inside max_iters; the launch counts. Prints each
+    episode's first token that differs from the reference's and its event
+    counts."""
+    from tal_asrd_tpu_torch.cli import test as cli_test
+    from tal_asrd_tpu_torch.data.synth import build_synth_corpus
+    from tal_asrd_tpu_torch.decode.fused_step import FusedASRDecoder
+    from tal_asrd_tpu_torch.decode.unaligned import UnalignedSpec
+    from tal_asrd_tpu_torch.eval.convert import score_test_result
+    from tal_asrd_tpu_torch.eval.runner import EvalRunner
+    from tal_asrd_tpu_torch.ops.cuda_decode import fused_layer_step
+    from tal_asrd_tpu_torch.ops.cuda_kernels import fused_logmel_project
+
+    split = os.path.join(out_dir, "eval_split")
+    if not os.path.exists(os.path.join(split, "transcript.pkl")):
+        build_synth_corpus(split, **EVAL_SPLIT)
+    bpe = os.path.join(root, "accuracy_release", "bpe.model")
+    with open(os.path.join(root, UNALIGNED_FIXTURE)) as f:
+        ref = json.load(f)["legs"]
+    with open(os.path.join(root, "ACCURACY.json")) as f:
+        published = json.load(f)
+    audio_seconds = EVAL_SPLIT["n_episodes"] * EVAL_SPLIT["episode_seconds"]
+    max_iters = UnalignedSpec(eos_id=1).max_iters
+
+    counters = {"fused_layer_step": fused_layer_step,
+                "fused_logmel_project": fused_logmel_project}
+    steps_taken = [0]
+    calls = []
+    step_of, generate_of = FusedASRDecoder.decode_step, EvalRunner._generate_fn
+
+    def counted_step(self, *args, **kwargs):
+        steps_taken[0] += 1
+        return step_of(self, *args, **kwargs)
+
+    def recorded_generate(self, max_new):
+        # each beam search of the VAD leg: its batch, its chosen rows and the
+        # launches it made (read off the counters around the call)
+        run = generate_of(self, max_new)
+
+        def call(audio, lens, prime):
+            before = {k: fn.launches for k, fn in counters.items()}
+            out = run(audio, lens, prime)
+            torch.cuda.synchronize()
+            calls.append({"audio": audio, "lens": lens, "prime": prime,
+                          "bucket": audio.shape[1],
+                          **{k: out[k].cpu() for k in ("tokens", "lengths", "scores", "found")},
+                          "launches": {k: fn.launches - before[k]
+                                       for k, fn in counters.items()}})
+            return out
+        return call
+
+    def cli_argv(leg, name):
+        return ["--train-data", split, "--valid-data", split, "--test-data", split,
+                "--tokenizer", bpe, "--model-type", "1x", "--num-speakers", "8",
+                "--load", os.path.join(root, "accuracy_release", "avg_last_3.bf16.msgpack"),
+                "--out-dir", os.path.join(out_dir, f"unaligned_{leg}_{name}"),
+                "--device", dev, "--unaligned"] + (
+                    ["--vad-windows"] if leg == "vad" else []) + (
+                    ["--fused-decode"] if name == "fused" else [])
+
+    runs, vad_calls = {}, {}
+    for leg in ("vad", "sm"):
+        cli_test.main(cli_argv(leg, "unfused"))          # warm-up, not counted
+        for name in ("unfused", "fused"):
+            argv = cli_argv(leg, name)
+            FusedASRDecoder.decode_step = counted_step
+            EvalRunner._generate_fn = recorded_generate
+            steps_taken[0] = 0
+            calls.clear()
+            try:
+                # The main path's run: counts set to 0 just before it, read just after.
+                for fn in counters.values():
+                    fn.launches = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = cli_test.main(argv)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                launches = {k: fn.launches for k, fn in counters.items()}
+            finally:
+                FusedASRDecoder.decode_step = step_of
+                EvalRunner._generate_fn = generate_of
+            if trace and name == "fused":
+                profile_call(torch, f"eval_unaligned_1x:{leg}:{name}", cli_test.main, (argv,))
+            scored = score_test_result(os.path.join(out_dir, f"unaligned_{leg}_{name}",
+                                                    "test_result.pkl"))
+            r = {f"unaligned_{leg}_wer_pct": 100.0 * scored["overall_wer"],
+                 f"unaligned_{leg}_wder_pct": 100.0 * scored["overall_wder"],
+                 "n_words": int(sum(scored["n_words"])), "seconds": secs,
+                 "audio_seconds_per_second": audio_seconds / secs, "launches": launches,
+                 "decode_steps": steps_taken[0]}
+            if leg == "vad":
+                model, gaps, by_bucket = res["runner"].model, [], {}
+                with torch.inference_mode():
+                    for c in calls:
+                        # the windows' rows that ended in EOS (zero rows fill a batch)
+                        rows = torch.from_numpy(np.flatnonzero(
+                            (c["lens"] > 1) & c["found"].numpy()))
+                        enc = model.encode(torch.from_numpy(c["audio"]).to(dev),
+                                           torch.from_numpy(c["lens"]).to(dev))
+                        resc = rescore(torch, model, enc, c["tokens"].to(dev), 1,
+                                       c["lengths"].to(dev)).cpu()
+                        gaps.append(float((resc - c["scores"])[rows].abs().max()))
+                        b = by_bucket.setdefault(c["bucket"] // 16000, {
+                            "calls": 0, "fused_layer_step": 0, "fused_logmel_project": 0})
+                        b["calls"] += 1
+                        for k, v in c["launches"].items():
+                            b[k] += v
+                vad_calls[name] = list(calls)
+                vad_calls["model"] = model
+                windows_equal = [st["windows"] == [(w["start"], w["end"]) for w in ep["windows"]]
+                                 for st, ep in zip(res["steps"], ref["vad"]["episodes"])]
+                want = [[w["tokens"][:-1] if w["found"] and w["length"] > 1 else w["tokens"]
+                         for w in ep["windows"]] for ep in ref["vad"]["episodes"]]
+                r.update({
+                    "rescore_max_gap": max(gaps), "windows_equal": windows_equal,
+                    "rows_rescored": sum(int(((c["lens"] > 1) & c["found"].numpy()).sum())
+                                         for c in calls),
+                    "rows": sum(int((c["lens"] > 1).sum()) for c in calls),
+                    "windows": [st["num_windows"] for st in res["steps"]],
+                    "windows_per_bucket": [st["buckets"] for st in res["steps"]],
+                    "by_bucket": by_bucket,
+                    "windows_with_reference_tokens": sum(
+                        a == b for st, w in zip(res["steps"], want)
+                        for a, b in zip(st["window_tokens"], w))})
+                del model
+            else:
+                r["episodes"] = [{
+                    "idx": st["idx"], "num_tokens": st["num_tokens"], "iters": st["iters"],
+                    "events": st["events"],
+                    "reference_num_tokens": ep["num_tokens"], "reference_iters": ep["iters"],
+                    "first_divergence": next(
+                        (i for i, (a, b) in enumerate(zip(st["tokens"], ep["tokens"])) if a != b),
+                        -1 if len(st["tokens"]) == len(ep["tokens"])
+                        else min(len(st["tokens"]), len(ep["tokens"])))}
+                    for st, ep in zip(res["steps"], ref["sm"]["episodes"])]
+            runs[(leg, name)] = r
+            del res
+            torch.cuda.empty_cache()
+
+    near_ties = vad_near_ties(torch, dev, vad_calls)
+    rec = {"phase": "eval_unaligned_1x", "card": card, "audio_seconds": audio_seconds,
+           "vad_fused_vs_unfused": near_ties,
+           **{f"{leg}_{name}": r for (leg, name), r in runs.items()},
+           "reference_jax_cpu": {f"unaligned_{leg}_{k}": ref[leg][k]
+                                 for leg in ("vad", "sm") for k in ("wer_pct", "wder_pct")},
+           "accuracy_json_f32_checkpoint": {
+               "unaligned_wer_pct": published["unaligned_wer_pct"],
+               "unaligned_wder_pct": published["unaligned_wder_pct"],
+               "unaligned_flags": published["unaligned_flags"]},
+           "note": "accuracy_json_f32_checkpoint: the f32 checkpoint's figures (VAD "
+                   "windows), not in the repository; printed, no gate"}
+    emit(rec)
+
+    for (leg, name), r in runs.items():
+        k1_want = 4 * r["decode_steps"] if name == "fused" else 0
+        if r["launches"]["fused_layer_step"] != k1_want or (
+                name == "fused" and r["decode_steps"] == 0):
+            fail(f"eval_unaligned_1x[{leg}, {name}]: K1 launches {r['launches']} after "
+                 f"{r['decode_steps']} fused decode steps, expected {k1_want}")
+        k2_want = (sum(b["calls"] for b in r["by_bucket"].values()) if leg == "vad" else 1)
+        if r["launches"]["fused_logmel_project"] != k2_want:
+            fail(f"eval_unaligned_1x[{leg}, {name}]: K2 launches {r['launches']}, "
+                 f"expected {k2_want}")
+        if leg == "vad":
+            if not all(r["windows_equal"]):
+                fail(f"eval_unaligned_1x[vad, {name}]: windows differ from the reference's "
+                     f"({r['windows_equal']})")
+            if r["rescore_max_gap"] > 0.05:
+                fail(f"eval_unaligned_1x[vad, {name}]: beam scores disagree with "
+                     f"teacher-forced rescoring by {r['rescore_max_gap']} (> 0.05)")
+        elif not all(0 < ep["iters"] < max_iters for ep in r["episodes"]):
+            fail(f"eval_unaligned_1x[sm, {name}]: an episode ran out of max_iters "
+                 f"({[ep['iters'] for ep in r['episodes']]})")
+    if near_ties["unexcused_flips"]:
+        fail(f"eval_unaligned_1x[vad]: fused and unfused greedy decodes of the VAD batches "
+             f"part at a margin wider than twice the logit deviation: "
+             f"{near_ties['unexcused_flips'][:5]}")
+    for leg, to_ref, fused_band in (("vad", (1.0, 1.0), (0.5, 0.5)),
+                                     ("sm", (2.0, 3.0), (2.0, 3.0))):
+        u, fz = runs[(leg, "unfused")], runs[(leg, "fused")]
+        for key, limit_ref, limit_fused in zip(("wer_pct", "wder_pct"), to_ref, fused_band):
+            k = f"unaligned_{leg}_{key}"
+            # The VAD leg: beyond the band only where the two runs lie on either
+            # side of the JAX reference, each within the band of it
+            straddle = (leg == "vad" and abs(fz[k] - ref[leg][key]) <= limit_fused
+                        and abs(u[k] - ref[leg][key]) <= limit_fused)
+            if abs(fz[k] - u[k]) > limit_fused and not straddle:
+                fail(f"eval_unaligned_1x: fused {k} {fz[k]} is more than {limit_fused} "
+                     f"points from unfused {u[k]}")
+            if abs(u[k] - ref[leg][key]) > limit_ref:
+                fail(f"eval_unaligned_1x: unfused {k} {u[k]} is more than {limit_ref} "
+                     f"points from the JAX CPU reference's {ref[leg][key]}")
+    return runs
+
+
+# ---------------------------------------------------------------------------
 # Phases 6-7: the training path
 # ---------------------------------------------------------------------------
 def train_batch(torch, dev, seed, b, n_tokens, l=128, lo=64):
@@ -1350,6 +1726,37 @@ def kernel_entry(config, rec, launches_n, err, mode=None):
             **({"plan": rec["plan"]} if "plan" in rec else {})}
 
 
+def unaligned_entries(runs, k1, k2):
+    """The long-form path's kernels: per leg and run, K2 at its N and K1 at
+    its shape, with their launches in that run (the VAD leg's split by
+    bucket, read off the counters around each beam search)."""
+    entries = []
+    for name in ("unfused", "fused"):
+        sm = runs[("sm", name)]
+        entries.append(kernel_entry(f"eval_unaligned_1x:sm:{name}", k2["sm"],
+                                    sm["launches"]["fused_logmel_project"],
+                                    k2["sm"]["max_abs_err"]))
+        if name == "fused":
+            rec = k1[("sm", 1)]
+            entries.append(kernel_entry("eval_unaligned_1x:sm:fused", rec,
+                                        sm["launches"]["fused_layer_step"],
+                                        rec["max_abs_err"]["x_out"], "none"))
+        by_bucket = runs[("vad", name)]["by_bucket"]
+        for secs, _, _, _ in VAD_SHAPES:
+            got = by_bucket.get(secs)
+            if got is None:          # no window of this bucket in the split
+                continue
+            entries.append(kernel_entry(f"eval_unaligned_1x:vad:{name}:{secs}s", k2[("vad", secs)],
+                                        got["fused_logmel_project"],
+                                        k2[("vad", secs)]["max_abs_err"]))
+            if name == "fused":
+                rec = k1[("vad", secs)]
+                entries.append(kernel_entry(f"eval_unaligned_1x:vad:fused:{secs}s", rec,
+                                            got["fused_layer_step"],
+                                            rec["max_abs_err"]["x_out"], "none"))
+    return entries
+
+
 def serving_phases(torch, dev, root, args, k1, k2, checks, timed):
     """Phases 4-5: the serving path in every decoder configuration. Returns
     the launches per configuration and their `kernels` entries."""
@@ -1409,10 +1816,12 @@ def serving_phases(torch, dev, root, args, k1, k2, checks, timed):
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="all", choices=("all", "kernels", "train", "eval"),
+    ap.add_argument("--phases", default="all",
+                    choices=("all", "kernels", "train", "eval", "unaligned"),
                     help="'kernels' stops after the build and the kernel checks; "
                          "'train' skips the serving and eval phases; 'eval' runs "
-                         "eval_aligned_1x after the kernel checks, nothing else")
+                         "eval_aligned_1x after the kernel checks, nothing else; "
+                         "'unaligned' runs eval_unaligned_1x after them")
     ap.add_argument("--profile", action="store_true",
                     help="also trace one fused greedy generate per model, each eval "
                          "CLI run and one 2x training step with torch.profiler and "
@@ -1533,6 +1942,18 @@ def main() -> None:
           **{k: k1_eval[EVAL_LANES[0]][k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms",
                                                       "bound_by", "timed_shape", "plan")},
           "plans": {str(b): k1_eval[b]["plan"] for b in EVAL_LANES}})
+    # ---- 3d. K1 and K2 at the long-form path's shapes; the prefill -> K1 ------
+    # hand-off on the tracked checkpoint
+    k1_long, k2_long = check_unaligned_kernels(torch, dev)
+    model_1x, _ = build_1x_checkpoint(torch, dev, root)
+    check_prefill_handoff(torch, dev, model_1x, card)
+    del model_1x
+    torch.cuda.empty_cache()
+    emit({"phase": "kernel_timing", "name": "fused_layer_step", "card": card,
+          "of": "eval_unaligned_1x", "note": "ms = CUDA-graph replay, per launch",
+          **{f"{leg},{key}": {k: v[k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms",
+                                                 "bound_by", "timed_shape", "plan")}
+             for (leg, key), v in k1_long.items() if "ms" in v}})
     if args.phases == "kernels":
         print("chip_smoke: kernel checks passed (serving phases skipped)", flush=True)
         return
@@ -1562,7 +1983,11 @@ def main() -> None:
             kernel_entry("eval_aligned_1x:unfused", k2_eval,
                          ev["unfused"]["launches"]["fused_logmel_project"],
                          k2_eval["max_abs_err"])]
-    if args.phases == "eval":
+    # ---- 5c. the long-form evaluation ----------------------------------------
+    if args.phases in ("all", "unaligned"):
+        un = run_eval_unaligned_1x(torch, dev, root, out_dir, card, trace=args.profile)
+        entries += unaligned_entries(un, k1_long, k2_long)
+    if args.phases in ("eval", "unaligned"):
         shutil.rmtree(out_dir, ignore_errors=True)
         finish(torch, entries, card, t_start)
         return

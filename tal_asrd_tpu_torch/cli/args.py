@@ -3,9 +3,10 @@
 Counterpart of the test side of tal_asrd_tpu/cli/args.py (`get_argparser(
 is_train=False)`, `build_configs`): the same flags, so a reference
 invocation of `python -m tal_asrd_tpu.cli.test` runs unchanged as
-`python -m tal_asrd_tpu_torch.cli.test`, plus `--device`. Flags whose path
-is not ported yet are accepted at their defaults only (cli/test.py and
-DecodeConfig refuse other values, naming the ROADMAP item).
+`python -m tal_asrd_tpu_torch.cli.test`, plus `--device`. LM fusion
+(--lm-path / --lm-weight, ROADMAP A14) and the separate speaker head
+(--spk-weight > 0, A12.2) are not ported yet: cli/test.py refuses them,
+naming the item.
 """
 from __future__ import annotations
 
@@ -35,8 +36,7 @@ def get_argparser() -> argparse.ArgumentParser:
                    help="per-token decode through the fused layer-step kernel "
                         "(speaker-token models)")
     p.add_argument("--bf16-params", action="store_true", default=False,
-                   help="cast the loaded parameters to bf16 before decoding "
-                        "(not ported: ROADMAP A8)")
+                   help="cast the loaded f32 parameters to bf16 before decoding")
     p.add_argument("--num-workers", type=int, default=4)
     p.add_argument("--grad-acc", type=int, default=1)
     p.add_argument("--lr", type=float, default=1e-4)
@@ -45,19 +45,31 @@ def get_argparser() -> argparse.ArgumentParser:
     p.add_argument("--num-speakers", type=int, default=0)
     p.add_argument("--quick-test", action="store_true", default=False)
     p.add_argument("--unaligned", action="store_true", default=False,
-                   help="long-form decode of whole episodes (not ported: ROADMAP A9)")
-    p.add_argument("--unaligned-lanes", type=int, default=8)
-    # The unaligned state machine's knobs (DecodeConfig; ROADMAP A9)
+                   help="long-form decode of whole episodes (the sliding-window "
+                        "state machine, or VAD windows with --vad-windows)")
+    p.add_argument("--unaligned-lanes", type=int, default=8,
+                   help="encode up to N equal-length episodes together and run "
+                        "them through the state machine as one group; 1 = one "
+                        "episode at a time")
+    # The unaligned state machine's knobs (DecodeConfig)
     p.add_argument("--thresh-prct", type=float, default=None)
     p.add_argument("--shift-prct", type=float, default=None)
     p.add_argument("--stall-patience", type=int, default=None)
     p.add_argument("--skip-prct", type=float, default=None)
-    p.add_argument("--evict-block", type=int, default=None)
-    p.add_argument("--eos-advance", action="store_true", default=False)
+    p.add_argument("--evict-block", type=int, default=None,
+                   help="history-cap eviction block (1 = the reference's slide by 1)")
+    p.add_argument("--eos-advance", action="store_true", default=False,
+                   help="extension: an emitted EOS advances the window to the "
+                        "attention centroid and re-primes the history")
     p.add_argument("--vad-windows", action="store_true", default=False,
-                   help="VAD-gated windows for the unaligned leg (ROADMAP A10)")
-    p.add_argument("--vad-max-window", type=float, default=20.0)
-    p.add_argument("--stall-rollback", action="store_true", default=False)
+                   help="long-form decode through VAD-gated windows instead of "
+                        "the sliding-window state machine")
+    p.add_argument("--vad-max-window", type=float, default=20.0,
+                   help="longest VAD decode window in seconds before the "
+                        "quietest-frame split")
+    p.add_argument("--stall-rollback", action="store_true", default=False,
+                   help="extension: stall resets also roll back the tokens "
+                        "emitted since the last progress")
     p.add_argument("--shiftaug", action="store_true", default=False)
     p.add_argument("--alignaug", action="store_true", default=False)
     p.add_argument("--spk-weight", type=float, default=0)

@@ -143,23 +143,23 @@ class TrainConfig:
 
 @dataclass(frozen=True)
 class DecodeConfig:
-    """Decoding knobs, the reference's fields. The paths that read some of
-    them are not ported yet: those fields are accepted at their defaults only,
-    and any other value raises NotImplementedError naming the ROADMAP item
-    that ports the path."""
+    """Decoding knobs, the reference's fields. LM fusion (ROADMAP A14) and
+    the non-causal reference mode (A11) are not ported yet: those fields are
+    accepted at their defaults only, and any other value raises
+    NotImplementedError naming the ROADMAP item."""
 
     beam_size: int = 5
     max_length: int = 512
     # LM shallow fusion weight (ROADMAP A14)
     lm_weight: float = 0.0
-    # The unaligned sliding-window decoder's state machine (ROADMAP A9)
+    # The unaligned sliding-window decoder's state machine (decode/unaligned.py)
     chunk_size: int = 357     # encoder frames per window (~28.5 s of audio)
     thresh_prct: float = 0.5
     shift_prct: float = 0.25
     stall_patience: int = 25
     rep_n: int = 5
     skip_prct: float = 0.1
-    max_iters: int = 20000
+    max_iters: int = 20000    # the reference's field; its runner does not read it
     history_evict_block: int = 64
     eos_advance: bool = False
     stall_rollback: bool = False
@@ -182,9 +182,5 @@ class DecodeConfig:
 # Fields read only by paths not ported yet, and the ROADMAP item of each path.
 _UNPORTED_DECODE_FIELDS = {
     "lm_weight": "A14 (LM shallow fusion)",
-    **{name: "A9 (the unaligned state machine)" for name in (
-        "chunk_size", "thresh_prct", "shift_prct", "stall_patience", "rep_n",
-        "skip_prct", "max_iters", "history_evict_block", "eos_advance",
-        "stall_rollback")},
     "self_attn_mode": "A11 (the non-causal reference mode)",
 }

@@ -25,10 +25,11 @@ the device; the host reads one flag per step (are all slots done?).
     reorder: new row r gets the expectation of old row r, not of the beam it
     continues.
 
-`torch.topk` does not promise an order among equal values where the
-reference's top-k takes the lower index. Equal scores arise only among
--1e30 entries (dead or not-yet-fanned-out beams), whose rows never reach the
-output, so no tie-break is added.
+Equal scores are common: logits come in bf16, two tokens of one beam with
+the same bf16 logit get the same f32 score, and the order of the chosen
+beams decides their slots. The reference's top-k (`lax.top_k`) puts the
+lower index first among equal values; `torch.topk` promises no order, so
+the selection is a stable descending sort (`top_k`).
 
 Not ported yet (raise NotImplementedError): LM shallow fusion (ROADMAP A14)
 and the speaker-head logits track `collect_spk` (A12.2).
@@ -139,7 +140,7 @@ def beam_search(
         logprobs = torch.log_softmax(logits.to(torch.float32), dim=-1)  # [BK, V]
         total = logprobs + scores.reshape(-1, 1)
         total = torch.where(done[:, None], NEG_INF, total)
-        scores, idx = torch.topk(total.reshape(b, k * v), k, dim=-1)    # [B, K]
+        scores, idx = top_k(total.reshape(b, k * v), k)                  # [B, K]
         best_tok = idx % v                                              # [B, K]
         flat_beams = (idx // v + batch_offset).reshape(-1)              # [BK]
 
@@ -204,6 +205,13 @@ def beam_search(
     if spec.collect_spk_embed:
         out["spk_embed"] = fin_emb[rows, best]
     return out
+
+
+def top_k(x: torch.Tensor, k: int):
+    """The k largest values of each row and their indices, in descending
+    order, the lower index first among equal values (as lax.top_k)."""
+    values, index = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k], index[..., :k]
 
 
 def _gather(tree, axis: int, index: torch.Tensor):

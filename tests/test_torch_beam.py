@@ -110,3 +110,20 @@ def test_unported_beam_options_raise(world, field):
 def test_generate_defaults_to_cuda():
     import inspect
     assert inspect.signature(make_generate_fn).parameters["device"].default == "cuda"
+
+
+def test_top_k_puts_the_lower_index_first_among_equal_scores():
+    """ROADMAP C9: bf16 logits make equal scores common, and the order of
+    the chosen beams decides their slots. The selection equals lax.top_k's,
+    ties included (torch.topk returned [2, 4, 1] for [1, 3, 3, 2, 3])."""
+    from tal_asrd_tpu_torch.decode.beam import top_k
+    rng = np.random.default_rng(0)
+    for shape, k in (((4, 40), 5), ((3, 1540), 5), ((2, 7), 7)):
+        x = rng.integers(0, 6, shape).astype(np.float32)
+        x[0, :3] = -1e30                     # dead beams' entries tie too
+        values, index = top_k(torch.from_numpy(x), k)
+        j_values, j_index = jax.lax.top_k(jnp.asarray(x), k)
+        np.testing.assert_array_equal(index.numpy(), np.asarray(j_index))
+        np.testing.assert_array_equal(values.numpy(), np.asarray(j_values))
+    values, index = top_k(torch.tensor([[1.0, 3.0, 3.0, 2.0, 3.0]]), 3)
+    assert index.tolist() == [[1, 2, 4]]

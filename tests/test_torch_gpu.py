@@ -173,3 +173,56 @@ def test_eval_cli_runs_eight_segments_through_k1_and_k2(tmp_path):
     for name in ("hyp.txt", "ref.txt"):
         with open(os.path.join(out, name)) as f:
             assert len(f.read().splitlines()) == 8
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("leg", ["state_machine", "vad_windows"])
+def test_long_form_cli_runs_one_episode_through_k1_and_k2(tmp_path, leg):
+    """`python -m tal_asrd_tpu_torch.cli.test --unaligned [--vad-windows]
+    --fused-decode` on the card, with the tracked checkpoint, on one 60 s
+    episode of the synthetic test split: the reference's output files, the
+    machine inside its budget, K1 four times a fused decode step, K2 at
+    every encode (one for the episode; one a batch of VAD windows)."""
+    import pickle
+
+    import torch
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: a CUDA kernel has no interpret mode")
+    from tal_asrd_tpu_torch.cli.test import main
+    from tal_asrd_tpu_torch.data.synth import build_synth_corpus
+    from tal_asrd_tpu_torch.decode.fused_step import FusedASRDecoder
+    from tal_asrd_tpu_torch.ops.cuda_decode import fused_layer_step
+    from tal_asrd_tpu_torch.ops.cuda_kernels import fused_logmel_project
+    split, out = str(tmp_path / "test"), str(tmp_path / "out")
+    build_synth_corpus(split, n_episodes=1, episode_seconds=60.0, n_speakers=8, seed=202)
+    steps = [0]
+    step_of = FusedASRDecoder.decode_step
+
+    def counted(self, *args, **kwargs):
+        steps[0] += 1
+        return step_of(self, *args, **kwargs)
+
+    fused_layer_step.launches = fused_logmel_project.launches = 0
+    FusedASRDecoder.decode_step = counted
+    try:
+        res = main(["--train-data", split, "--valid-data", split, "--test-data", split,
+                    "--tokenizer", os.path.join(ROOT, "accuracy_release", "bpe.model"),
+                    "--model-type", "1x", "--num-speakers", "8", "--fused-decode",
+                    "--unaligned", "--load",
+                    os.path.join(ROOT, "accuracy_release", "avg_last_3.bf16.msgpack"),
+                    "--out-dir", out] + (["--vad-windows"] if leg == "vad_windows" else []))
+    finally:
+        FusedASRDecoder.decode_step = step_of
+    (step,) = res["steps"]
+    assert steps[0] > 0 and fused_layer_step.launches == 4 * steps[0]
+    if leg == "vad_windows":
+        assert fused_logmel_project.launches == sum(
+            -(-n // 16) for n in step["buckets"].values())
+    else:
+        assert fused_logmel_project.launches == 1 and 0 < step["iters"] < 100000
+    with open(os.path.join(out, "test_result.pkl"), "rb") as f:
+        ((refs, hyp),) = pickle.load(f)
+    assert refs and hyp
+    for name in ("hyp.txt", "ref.txt"):
+        with open(os.path.join(out, name)) as f:
+            assert len(f.read().splitlines()) == 1

@@ -58,21 +58,43 @@ def test_no_source_line_imports_jax_or_the_jax_package():
     assert not hits, hits
 
 
+def test_the_long_form_modules_are_among_the_checked_ones():
+    mods = set(_port_modules())
+    assert {"tal_asrd_tpu_torch.ops.ngram", "tal_asrd_tpu_torch.decode.unaligned",
+            "tal_asrd_tpu_torch.decode.transcribe", "tal_asrd_tpu_torch.vad.core",
+            "tal_asrd_tpu_torch.vad.webrtc_gmm", "tal_asrd_tpu_torch.vad.windows",
+            "tal_asrd_tpu_torch.vad.eval", "tal_asrd_tpu_torch.vad.pipeline",
+            "tal_asrd_tpu_torch.cli.vad", "tal_asrd_tpu_torch.cli.transcribe"} <= mods
+    # the neural SAD is not ported (ROADMAP A18)
+    assert not {"tal_asrd_tpu_torch.vad.sad", "tal_asrd_tpu_torch.vad.pyannet"} & mods
+
+
 @pytest.mark.parametrize("target", ["ASRModel", "make_generate_fn", "ASRSystem",
-                                    "EvalRunner", "cli.test"])
+                                    "EvalRunner", "cli.test", "Transcriber",
+                                    "cli.transcribe", "cli.vad"])
 def test_entry_points_default_to_cuda(target):
+    from tal_asrd_tpu_torch.cli import transcribe as cli_transcribe
+    from tal_asrd_tpu_torch.cli import vad as cli_vad
     from tal_asrd_tpu_torch.cli.args import get_argparser
     from tal_asrd_tpu_torch.decode.beam import make_generate_fn
+    from tal_asrd_tpu_torch.decode.transcribe import Transcriber
     from tal_asrd_tpu_torch.eval.runner import EvalRunner
     from tal_asrd_tpu_torch.models.asr import ASRModel
     from tal_asrd_tpu_torch.train.system import ASRSystem
-    if target == "cli.test":       # python -m tal_asrd_tpu_torch.cli.test: --device
-        args = get_argparser().parse_args(
-            ["--train-data", "d", "--valid-data", "d", "--tokenizer", "t", "--model-type", "1x"])
-        assert args.device == "cuda"
+    parsers = {  # python -m tal_asrd_tpu_torch.cli.<name>: --device
+        "cli.test": (get_argparser, ["--train-data", "d", "--valid-data", "d",
+                                     "--tokenizer", "t", "--model-type", "1x"]),
+        "cli.transcribe": (cli_transcribe.get_parser, ["--audio", "a", "--load", "c",
+                                                       "--tokenizer", "t"]),
+        "cli.vad": (cli_vad.get_parser, ["--data-dir", "d", "--out-dir", "o"]),
+    }
+    if target in parsers:
+        make, argv = parsers[target]
+        assert make().parse_args(argv).device == "cuda"
         return
     fn = {"ASRModel": ASRModel.__init__, "make_generate_fn": make_generate_fn,
-          "ASRSystem": ASRSystem.__init__, "EvalRunner": EvalRunner.__init__}[target]
+          "ASRSystem": ASRSystem.__init__, "EvalRunner": EvalRunner.__init__,
+          "Transcriber": Transcriber.__init__}[target]
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
