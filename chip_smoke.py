@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases train     # ... + the training phases, no serving
     python3 chip_smoke.py --phases eval      # ... + the aligned evaluation only
     python3 chip_smoke.py --phases unaligned # ... + the long-form evaluation only
+    python3 chip_smoke.py --phases train_cli # ... + the training CLI only
 
 Builds the port's CUDA kernels from tal_asrd_tpu_torch/csrc/ with nvcc, holds
 each against its plain PyTorch version on the card at the shapes its paths
@@ -52,10 +53,23 @@ compute) and holds bf16 against f32 and grad_acc=2 against 1;
 `train_1x_checkpoint` takes 2 steps from the tracked checkpoint, saves and
 reloads it, and decodes with both sets of weights through K1.
 
+Then it runs the training CLI (`train_cli_1x`): `python -m
+tal_asrd_tpu_torch.cli.train`'s `main` at scripts/accuracy.sh's last
+phase's flags (B = 16, --max-secs 28.5, --shiftaug --cache-items
+--audio-int16, lr 2e-4) on scripts/ensure_corpus.sh's train and valid
+splits cut to 8 and 2 episodes: the tracked checkpoint's validation loss
+through the CLI's datasets against the JAX CPU reference
+(tests/fixtures/torch_train_cli_reference.json), run 1 from the tracked
+checkpoint for 3 epochs of 15 steps without SpecAugment, run 2 resuming
+from run 1's last checkpoint (step counter restored) for one epoch with
+SpecAugment (K4), `cli.tools average-ckpt --last-k 3`, and the eval CLI on
+the average over the test split; K2 at every audio shape the phase saw and
+K4 at [16, 3001, 80], both on int16 audio.
+
 Prints one JSON object per line: `device`, one `kernel` line per check,
 `k3_vs_k1_chain`, `k1_determinism`, `k3_determinism`, `kernel_timing`, one `serve_*` line per configuration,
 `eval_aligned_1x`, `prefill_handoff`, `eval_unaligned_1x`, `train_2x`,
-`train_1x_checkpoint`, `kernels` (every kernel of each path with
+`train_1x_checkpoint`, `train_cli_1x`, `kernels` (every kernel of each path with
 its launch count in that path's one timed run, its error against the plain
 version, its time, the plain version's, a library call's where one exists,
 and the least time the card could take), and last
@@ -68,6 +82,7 @@ Imports torch and the port only — nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import shutil
@@ -138,8 +153,9 @@ def bound(bytes_moved: float, flops: float, dtype_name: str):
 # ---------------------------------------------------------------------------
 # Phase 2: fused_logmel_project
 # ---------------------------------------------------------------------------
-def check_logmel(torch, dev, b, samples=WINDOW_SAMPLES):
-    """Kernel vs plain version and timings at N = b x num_frames(samples)."""
+def check_logmel(torch, dev, b, samples=WINDOW_SAMPLES, audio=None):
+    """Kernel vs plain version and timings at N = b x num_frames(samples),
+    on seeded normal audio or on `audio` ([b, samples] f32 on the card)."""
     from tal_asrd_tpu_torch.core.config import FrontendConfig
     from tal_asrd_tpu_torch.ops.cuda_kernels import (
         fused_logmel_project, logmel_project_plain)
@@ -147,8 +163,9 @@ def check_logmel(torch, dev, b, samples=WINDOW_SAMPLES):
 
     cfg = FrontendConfig()
     rng = np.random.default_rng(SEED)
-    audio = torch.from_numpy(
-        (rng.standard_normal((b, samples)) * 0.1).astype(np.float32)).to(dev)
+    if audio is None:
+        audio = torch.from_numpy(
+            (rng.standard_normal((b, samples)) * 0.1).astype(np.float32)).to(dev)
     power = power_spectrogram(audio, cfg)
     n = power.shape[0] * power.shape[1]
     power = power.reshape(n, power.shape[2]).contiguous()
@@ -201,14 +218,15 @@ TRAIN_SAMPLES = 320_000            # 20 s windows (TrainConfig.max_secs) -> 2001
 K4_SOURCE = ("tal_asrd_tpu_torch/csrc/specaug.cu", "tal_asrd_tpu/ops/pallas_kernels.py:121")
 
 
-def check_specaug(torch, dev, b, edge_cases=False):
+def check_specaug(torch, dev, b, edge_cases=False, spec_in=None):
     """K4 against its plain version, bit for bit, at a trainer's shape
-    [b, 2001, 80] with the default config; with `edge_cases` also at
-    [3, 37, 80] (T below the time mask parameter; there through the backward
-    pass too) and with zero masks (the wrapper passes the input through; the
-    kernel launched with zero masks copies it). Then its time at [b, 2001, 80]
-    beside its bound, reckoned from this draw, and a plain `torch.where` with
-    the mask given."""
+    [b, 2001, 80] (or on `spec_in`, a log-mel [b, T, 80] on the card) with
+    the default config; with `edge_cases` also at [3, 37, 80] (T below the
+    time mask parameter; there through the backward pass too) and with zero
+    masks (the wrapper passes the input through; the kernel launched with
+    zero masks copies it). Then its time at the trainer's shape beside its
+    bound, reckoned from this draw, and a plain `torch.where` with the mask
+    given."""
     from tal_asrd_tpu_torch.core.config import SpecAugmentConfig
     from tal_asrd_tpu_torch.ops.cuda_specaug import launch_specaug
     from tal_asrd_tpu_torch.ops.specaug import (
@@ -216,13 +234,14 @@ def check_specaug(torch, dev, b, edge_cases=False):
 
     gen = torch.Generator(device=dev).manual_seed(SEED + b)
     cfg, off = SpecAugmentConfig(), SpecAugmentConfig(num_freq_masks=0, num_time_masks=0)
-    n_frames = 1 + TRAIN_SAMPLES // 160
+    n_frames = 1 + TRAIN_SAMPLES // 160 if spec_in is None else spec_in.shape[1]
     cases = [("trainer", (b, n_frames, 80), cfg)]
     if edge_cases:
         cases += [("short_T", (3, 37, 80), cfg), ("zero_masks", (b, n_frames, 80), off)]
     checks = {}
     for name, shape, c in cases:
-        spec = torch.randn(shape, device=dev, generator=gen)
+        spec = (spec_in if name == "trainer" and spec_in is not None
+                else torch.randn(shape, device=dev, generator=gen))
         seeds = draw_seeds(shape[0], gen, dev)
         out = spec_augment_seeded(seeds, spec, c)
         torch.cuda.synchronize()
@@ -1713,6 +1732,323 @@ def run_train_1x_checkpoint(torch, dev, root, out_dir):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 7b: the training CLI on the tracked checkpoint (train_cli_1x)
+# ---------------------------------------------------------------------------
+# scripts/ensure_corpus.sh's train and valid splits (8 speakers, 120 s
+# episodes, seeds 0 and 101), cut from 100 and 3 episodes to 8 and 2: at
+# --max-secs 28.5 and --shiftaug, 150 aligned items and 96 windows a training
+# epoch (15 steps at B = 16), 37 + 24 validation items (3 batches).
+# scripts/accuracy.sh's last phase's flags, from the tracked checkpoint:
+# run 1 three epochs without SpecAugment, run 2 resumes from run 1's last
+# checkpoint in the same run directory for one more epoch with SpecAugment
+# (K4), then average-ckpt --last-k 3 and the eval CLI on the average.
+TRAIN_CLI_SPLITS = {"train": dict(n_episodes=8, episode_seconds=120.0, n_speakers=8, seed=0),
+                    "valid": dict(n_episodes=2, episode_seconds=120.0, n_speakers=8, seed=101)}
+TRAIN_CLI_CUT = "train 8 of 100 episodes, valid 2 of 3 (scripts/ensure_corpus.sh)"
+TRAIN_CLI_EPOCH = 15                  # steps an epoch: 246 items // 16
+TRAIN_CLI_FIXTURE = os.path.join("tests", "fixtures", "torch_train_cli_reference.json")
+TRAIN_CLI_WER = 59.11                 # the tracked checkpoint, eval_aligned_1x unfused (PERF.md)
+
+
+class _Tee:
+    """Writes to the real stdout and keeps a copy."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def int16_speech(rng, b, n):
+    """speechlike_audio through 16-bit PCM, scaled back as the model scales
+    int16 batches (what --audio-int16 gives the frontend)."""
+    pcm = np.clip(np.rint(speechlike_audio(rng, b, n) * 32768.0), -32768, 32767)
+    return pcm.astype(np.int16).astype(np.float32) / 32768.0
+
+
+def run_train_cli_1x(torch, dev, root, out_dir, card, trace=False):
+    """`python -m tal_asrd_tpu_torch.cli.train` (its `main`) twice from the
+    tracked checkpoint at scripts/accuracy.sh's last phase's flags, then
+    `cli.tools average-ckpt --last-k 3` and `cli.test` on the average. Gates:
+    the load parity (the tracked checkpoint's validation loss through the
+    CLI's own datasets, collater, loader and the system's eval_step, within
+    1 % of the JAX CPU reference, TRAIN_CLI_FIXTURE), finite losses, run 2's
+    last validation loss at most 5 % above the load parity's, one spot-check
+    record with GOLD text per epoch validation, the restored step (logged;
+    first new checkpoint past it; the run stops at --max-steps), every
+    checkpoint 151 leaves of the tracked checkpoint's shapes, a state file
+    on each run's last epoch, the average bit-equal to average_params, its
+    WER within 10 points of TRAIN_CLI_WER; K2 at every audio shape the phase
+    saw and K4 at [16, 3001, 80] against their plain versions on int16
+    audio; K4 only in run 2, once a training step. With `trace`, run 2 is
+    repeated once under torch.profiler (after the counted runs)."""
+    from tal_asrd_tpu_torch.cli import test as cli_test
+    from tal_asrd_tpu_torch.cli import tools as cli_tools
+    from tal_asrd_tpu_torch.cli import train as cli_train
+    from tal_asrd_tpu_torch.cli.args import build_configs, get_argparser
+    from tal_asrd_tpu_torch.core.checkpoint import (
+        CheckpointManager, average_params, load_pytree, tree_leaves)
+    from tal_asrd_tpu_torch.core.config import FrontendConfig, SpecAugmentConfig
+    from tal_asrd_tpu_torch.data.collate import BucketedCollater
+    from tal_asrd_tpu_torch.data.loader import DataLoader, ShardedSampler
+    from tal_asrd_tpu_torch.data.synth import build_synth_corpus
+    from tal_asrd_tpu_torch.eval.convert import score_test_result
+    from tal_asrd_tpu_torch.ops.cuda_kernels import fused_logmel_project
+    from tal_asrd_tpu_torch.ops.logmel import log_mel_spectrogram
+    from tal_asrd_tpu_torch.ops.specaug import spec_augment
+    from tal_asrd_tpu_torch.text.bpe import BpeTokenizer
+    from tal_asrd_tpu_torch.train.system import ASRSystem
+
+    base = os.path.join(out_dir, "train_cli")
+    dirs = {k: os.path.join(base, k) for k in ("train", "valid", "test", "ckpts", "out")}
+    t0 = time.perf_counter()
+    for name, split in TRAIN_CLI_SPLITS.items():
+        build_synth_corpus(dirs[name], **split)
+    build_synth_corpus(dirs["test"], **EVAL_SPLIT)
+    split_seconds = time.perf_counter() - t0
+    bpe = os.path.join(root, "accuracy_release", "bpe.model")
+    tracked = os.path.join(root, "accuracy_release", "avg_last_3.bf16.msgpack")
+    with open(os.path.join(root, TRAIN_CLI_FIXTURE)) as f:
+        ref = json.load(f)["load_parity"]
+    def leaf_shapes(tree):
+        return {path: np.shape(leaf) for path, leaf in tree_leaves(tree)}
+    tracked_tree = leaf_shapes(load_pytree(tracked))
+    counters = {"fused_logmel_project": fused_logmel_project, "spec_augment": spec_augment}
+
+    # every audio batch shape the phase's collaters make (K2's shapes)
+    shapes = set()
+    collate = BucketedCollater.__call__
+
+    def recording(self, samples):
+        out = collate(self, samples)
+        shapes.add(tuple(out["audio"].shape))
+        return out
+    BucketedCollater.__call__ = recording
+    # every step's metrics logged, as scripts/torch_train_reference.py does
+    trainer_config = cli_train.TrainerConfig
+    cli_train.TrainerConfig = functools.partial(trainer_config, log_every=1)
+    try:
+        # ---- load parity: the tracked checkpoint through the CLI's data -------
+        args = get_argparser(is_train=True).parse_args(
+            [dirs["valid"] if a == "VALID" else os.path.join(root, a)
+             if a.startswith("accuracy_release/") else a for a in ref["argv"]]
+            + ["--device", dev])
+        tokenizer = BpeTokenizer(model_path=bpe)
+        model_cfg, train_cfg, _ = build_configs(args, tokenizer)
+        system = ASRSystem(model_cfg, train_cfg, device=dev, specaug_cfg=SpecAugmentConfig(
+            num_freq_masks=0, num_time_masks=0))
+        cli_train.load_weights(args, system, model_cfg.num_tokens)
+        _, valid = cli_train.build_datasets(args, tokenizer)
+        loader = DataLoader(valid, args.val_batch_size or args.batch_size,
+                            BucketedCollater(tokenizer.pad_token_id, audio_int16=True),
+                            ShardedSampler(len(valid), shuffle=False), args.num_workers)
+        batches = list(loader)
+        losses = [float(system.eval_step(b)["loss"]) for b in batches]
+        parity = {"val_loss": float(np.mean(losses)), "batch_losses": losses,
+                  "reference_val_loss": ref["val_loss"],
+                  "reference_batch_losses": ref["batch_losses"],
+                  "audio_shapes": [list(b["audio"].shape) for b in batches]}
+        parity["rel_err"] = abs(parity["val_loss"] - ref["val_loss"]) / ref["val_loss"]
+        same_batches = (parity["audio_shapes"] == ref["audio_shapes"] and
+                        [b["idx"].tolist() for b in batches] == ref["idx"])
+        del system, batches
+        torch.cuda.empty_cache()
+
+        # ---- run 1, run 2 ---------------------------------------------------------
+        common = ["--train-data", dirs["train"], "--valid-data", dirs["valid"],
+                  "--tokenizer", bpe, "--model-type", "1x", "--num-speakers", "8",
+                  "--batch-size", "16", "--max-secs", "28.5", "--num-workers", "0",
+                  "--lr", "2e-4", "--max-epochs", "1000", "--ckpt-every", "1",
+                  "--shiftaug", "--cache-items", "--audio-int16", "--name", "train_cli_1x",
+                  "--checkpoint-path", dirs["ckpts"], "--out-dir", dirs["out"],
+                  "--device", dev]
+        run_dir = os.path.join(dirs["ckpts"], "train_cli_1x")
+        n1 = 3 * TRAIN_CLI_EPOCH
+        last1 = os.path.join(run_dir, f"ckpt_{n1:08d}.msgpack")
+        argvs = {"run1": common + ["--max-steps", str(n1), "--load", tracked, "--no-specaug"],
+                 "run2": common + ["--max-steps", str(n1 + TRAIN_CLI_EPOCH), "--load", last1]}
+        metrics = os.path.join(dirs["out"], "train_cli_1x.metrics.jsonl")
+        runs = {}
+        for name, argv in argvs.items():
+            seen = os.path.getsize(metrics) if os.path.exists(metrics) else 0
+            before = set(os.listdir(run_dir)) if os.path.isdir(run_dir) else set()
+            tee = _Tee(sys.stdout)
+            torch.cuda.reset_peak_memory_stats()
+            # The main path's run: counts set to 0 just before it, read just after.
+            for fn in counters.values():
+                fn.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sys.stdout = tee
+            try:
+                out = cli_train.main(argv)
+            finally:
+                sys.stdout = tee.out
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = {k: fn.launches for k, fn in counters.items()}
+            with open(metrics) as f:
+                f.seek(seen)
+                recs = [json.loads(line) for line in f if line.strip()]
+            new = sorted(set(os.listdir(run_dir)) - before)
+            steps = [r for r in recs if "loss" in r]
+            epochs = [r for r in recs if "epoch_time_s" in r]
+            train_s = sum(r["train_s"] for r in epochs)
+            runs[name] = {
+                "seconds": secs, "steps": len(steps), "epochs": len(epochs),
+                "final_step": out["system"].step, "update_count": out["system"].update_count(),
+                "first_step": steps[0]["step"] if steps else None,
+                "step_time_ms_median": 1e3 * float(np.median(
+                    [r["step_time_s"] for r in steps[1:]])),
+                "audio_seconds": sum(r["audio_s"] for r in epochs),
+                "audio_seconds_per_second": sum(r["audio_s"] for r in epochs) / train_s,
+                "loader_wait_share": sum(r["loader_wait_s"] for r in epochs) / train_s,
+                "loader_wait_share_of_run": sum(r["loader_wait_s"] for r in epochs) / secs,
+                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "losses_finite": bool(all(np.isfinite(r["loss"]) for r in steps)),
+                "first_loss": steps[0]["loss"] if steps else None,
+                "last_loss": steps[-1]["loss"] if steps else None,
+                "val_losses": [[r["step"], r["val_loss"]] for r in epochs],
+                "generations": [[r["step"], r["ref"], r["hyp"]] for r in recs
+                                if r.get("type") == "generation"],
+                "checkpoints": [n for n in new if n.startswith("ckpt_")],
+                "states": [n for n in new if n.startswith("state_")],
+                "restored_log": "restored step counter to" in "".join(tee.parts),
+                "launches": launches}
+            del out
+            torch.cuda.empty_cache()
+
+        # ---- average-ckpt --last-k 3, then the eval CLI on the average ------------
+        avg_path = os.path.join(base, "avg_last_3.msgpack")
+        cli_tools.main(["average-ckpt", "--ckpt-dir", run_dir, "--last-k", "3",
+                        "--out", avg_path])
+        mgr = CheckpointManager(run_dir)
+        avg, want = load_pytree(avg_path), average_params([mgr.load(s)
+                                                           for s in mgr.steps()[-3:]])
+        avg_leaves, want_leaves = dict(tree_leaves(avg)), dict(tree_leaves(want))
+        avg_equal = (sorted(avg_leaves) == sorted(want_leaves) and all(
+            v.dtype == np.float32 and v.tobytes() == want_leaves[k].tobytes()
+            for k, v in avg_leaves.items()))
+        ckpt_shapes_ok = {n: leaf_shapes(mgr.load(int(n[5:13]))) == tracked_tree
+                          for n in sorted(os.listdir(run_dir)) if n.startswith("ckpt_")}
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        cli_test.main(["--train-data", dirs["test"], "--valid-data", dirs["test"],
+                       "--test-data", dirs["test"], "--tokenizer", bpe, "--model-type", "1x",
+                       "--num-speakers", "8", "--load", avg_path,
+                       "--out-dir", os.path.join(base, "eval"), "--device", dev])
+        torch.cuda.synchronize()
+        eval_seconds = time.perf_counter() - t0
+        eval_launches = {k: fn.launches for k, fn in counters.items()}
+        scored = score_test_result(os.path.join(base, "eval", "test_result.pkl"))
+        if trace:
+            profile_call(torch, "train_cli_1x:run2", cli_train.main, (argvs["run2"],))
+    finally:
+        BucketedCollater.__call__ = collate
+        cli_train.TrainerConfig = trainer_config
+
+    # ---- K2 at every audio shape the phase saw, K4 at [16, 3001, 80], ----------
+    # both on int16 audio
+    rng = np.random.default_rng(SEED + 8)
+    k2_recs = {}
+    for b, n in sorted(shapes | {(1, n) for _, n in shapes}):
+        audio = torch.from_numpy(int16_speech(rng, b, n)).to(dev)
+        k2_recs[(b, n)] = check_logmel(torch, dev, b, n, audio=audio)
+    audio = torch.from_numpy(int16_speech(rng, 16, 480_000)).to(dev)
+    spec = log_mel_spectrogram(audio, FrontendConfig(),
+                               audio_lens=torch.full((16,), 480_000, device=dev))
+    k4 = check_specaug(torch, dev, 16, spec_in=spec.contiguous())
+    k2 = k2_recs.get((16, 480_000)) or k2_recs[max(k2_recs)]
+    k2_err = max(r["max_abs_err"] for r in k2_recs.values())
+
+    r1, r2 = runs["run1"], runs["run2"]
+    rec = {"phase": "train_cli_1x", "card": card, "cut": TRAIN_CLI_CUT,
+           "splits": TRAIN_CLI_SPLITS, "split_seconds": split_seconds,
+           "argv": {k: [a.replace(base, "OUT") for a in v] for k, v in argvs.items()},
+           "load_parity": parity, "load_parity_same_batches": same_batches,
+           "run1": r1, "run2": r2,
+           "average": {"bit_equal_to_average_params": avg_equal,
+                       "of": mgr.steps()[-3:], "leaves": len(avg_leaves)},
+           "checkpoints_readback_ok": ckpt_shapes_ok,
+           "eval_of_average": {"wer_pct": 100.0 * scored["overall_wer"],
+                               "wder_pct": 100.0 * scored["overall_wder"],
+                               "seconds": eval_seconds, "launches": eval_launches,
+                               "tracked_checkpoint_wer_pct": TRAIN_CLI_WER},
+           "k2_shapes": {f"{b}x{n}": {k: r[k] for k in ("shape", "max_abs_err", "ms",
+                                                        "bound_ms", "plain_ms")}
+                         for (b, n), r in k2_recs.items()},
+           "k4": {k: k4[k] for k in ("shape", "checks", "ms", "graph_ms", "bound_ms",
+                                     "plain_ms", "where_ms")}}
+    emit(rec)
+
+    # ---- gates -----------------------------------------------------------------
+    problems = []
+    if not same_batches or parity["rel_err"] > 0.01:
+        problems.append(f"load parity {parity['val_loss']} vs the reference's "
+                        f"{ref['val_loss']} (rel {parity['rel_err']:.4g} > 0.01, or other "
+                        f"batches: {same_batches})")
+    for name, r in runs.items():
+        if not r["losses_finite"] or r["steps"] == 0:
+            problems.append(f"{name}: {r['steps']} logged steps, finite {r['losses_finite']}")
+        if len(r["generations"]) != r["epochs"] or not all(g[1] for g in r["generations"]):
+            problems.append(f"{name}: {len(r['generations'])} spot checks with GOLD text "
+                            f"for {r['epochs']} epoch validations")
+        last = f"state_{r['final_step']:08d}.msgpack"
+        if r["states"] != [last]:
+            problems.append(f"{name}: state files {r['states']}, expected [{last}]")
+    if r1["final_step"] != n1 or r1["checkpoints"] != [
+            f"ckpt_{TRAIN_CLI_EPOCH * e:08d}.msgpack" for e in (1, 2, 3)]:
+        problems.append(f"run1: step {r1['final_step']}, checkpoints {r1['checkpoints']}")
+    if not (r2["restored_log"] and r2["first_step"] == n1 + 1
+            and r2["final_step"] == n1 + TRAIN_CLI_EPOCH and r2["update_count"] == TRAIN_CLI_EPOCH
+            and r2["checkpoints"] == [f"ckpt_{n1 + TRAIN_CLI_EPOCH:08d}.msgpack"]):
+        problems.append(f"run2: the restore (logged {r2['restored_log']}, first step "
+                        f"{r2['first_step']}, final {r2['final_step']}, updates "
+                        f"{r2['update_count']}, checkpoints {r2['checkpoints']})")
+    if r2["val_losses"][-1][1] > 1.05 * parity["val_loss"]:
+        problems.append(f"run2's last validation loss {r2['val_losses'][-1][1]} is more than "
+                        f"5 % above the tracked checkpoint's {parity['val_loss']}")
+    if not avg_equal or not all(ckpt_shapes_ok.values()) or len(tracked_tree) != 151:
+        problems.append(f"average bit-equal {avg_equal}; checkpoints read back with the "
+                        f"tracked shapes {ckpt_shapes_ok}")
+    if abs(rec["eval_of_average"]["wer_pct"] - TRAIN_CLI_WER) > 10.0:
+        problems.append(f"the average's WER {rec['eval_of_average']['wer_pct']} is more than "
+                        f"10 points from {TRAIN_CLI_WER}")
+    if (r1["launches"]["spec_augment"] != 0 or r2["launches"]["spec_augment"] != r2["steps"]
+            or min(r1["launches"]["fused_logmel_project"],
+                   r2["launches"]["fused_logmel_project"],
+                   eval_launches["fused_logmel_project"]) <= 0):
+        problems.append(f"launches: run1 {r1['launches']}, run2 {r2['launches']}, "
+                        f"eval {eval_launches}")
+    if problems:
+        fail("train_cli_1x: " + "; ".join(problems))
+    return {"record": rec, "k2": dict(k2, max_abs_err=k2_err), "k4": k4,
+            "launches": {"run1": r1["launches"], "run2": r2["launches"],
+                         "eval": eval_launches},
+            "k2_eval": k2_recs.get((64, EVAL_SAMPLES), k2)}
+
+
+def train_cli_entries(t):
+    """The training CLI's kernels, each with its launches in one run."""
+    return [
+        kernel_entry("train_cli_1x:run1", t["k2"], t["launches"]["run1"]["fused_logmel_project"],
+                     t["k2"]["max_abs_err"]),
+        kernel_entry("train_cli_1x:run2", t["k2"], t["launches"]["run2"]["fused_logmel_project"],
+                     t["k2"]["max_abs_err"]),
+        kernel_entry("train_cli_1x:run2", t["k4"], t["launches"]["run2"]["spec_augment"],
+                     t["k4"]["max_abs_err"]),
+        kernel_entry("train_cli_1x:eval", t["k2_eval"],
+                     t["launches"]["eval"]["fused_logmel_project"], t["k2"]["max_abs_err"]),
+    ]
+
+
 def kernel_entry(config, rec, launches_n, err, mode=None):
     """One record of the `kernels` line."""
     return {"name": rec["name"], "mode": mode or rec.get("mode", "none"),
@@ -1817,15 +2153,16 @@ def serving_phases(torch, dev, root, args, k1, k2, checks, timed):
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default="all",
-                    choices=("all", "kernels", "train", "eval", "unaligned"),
+                    choices=("all", "kernels", "train", "eval", "unaligned", "train_cli"),
                     help="'kernels' stops after the build and the kernel checks; "
                          "'train' skips the serving and eval phases; 'eval' runs "
                          "eval_aligned_1x after the kernel checks, nothing else; "
-                         "'unaligned' runs eval_unaligned_1x after them")
+                         "'unaligned' runs eval_unaligned_1x after them; "
+                         "'train_cli' runs train_cli_1x after them")
     ap.add_argument("--profile", action="store_true",
                     help="also trace one fused greedy generate per model, each eval "
-                         "CLI run and one 2x training step with torch.profiler and "
-                         "print where the time goes")
+                         "CLI run, one 2x training step and the training CLI's second "
+                         "run with torch.profiler and print where the time goes")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -1991,10 +2328,18 @@ def main() -> None:
         shutil.rmtree(out_dir, ignore_errors=True)
         finish(torch, entries, card, t_start)
         return
+    # ---- 7b. the training CLI --------------------------------------------------
+    if args.phases == "train_cli":
+        entries += train_cli_entries(run_train_cli_1x(torch, dev, root, out_dir, card,
+                                                      trace=args.profile))
+        shutil.rmtree(out_dir, ignore_errors=True)
+        finish(torch, entries, card, t_start)
+        return
 
     # ---- 6-7. the training path ------------------------------------------------
     t2 = run_train_2x(torch, dev, out_dir, trace=args.profile)
     t1 = run_train_1x_checkpoint(torch, dev, root, out_dir)
+    tc = run_train_cli_1x(torch, dev, root, out_dir, card, trace=args.profile)
     shutil.rmtree(out_dir, ignore_errors=True)
     # each training path's kernels, each with the record of the shape that
     # path gave it: train_1x_checkpoint trains at B=8 x 20 s and generates at
@@ -2014,7 +2359,7 @@ def main() -> None:
         kernel_entry("train_1x_checkpoint:generate", k1["train_1x"],
                      t1_gen["fused_layer_step"], k1["train_1x"]["max_abs_err"]["x_out"],
                      "none"),
-    ]
+    ] + train_cli_entries(tc)
     finish(torch, entries, card, t_start)
 
 

@@ -1,21 +1,27 @@
-"""The evaluation CLI's argument parser and `build_configs`.
+"""The CLIs' argument parser and `build_configs`.
 
-Counterpart of the test side of tal_asrd_tpu/cli/args.py (`get_argparser(
-is_train=False)`, `build_configs`): the same flags, so a reference
-invocation of `python -m tal_asrd_tpu.cli.test` runs unchanged as
-`python -m tal_asrd_tpu_torch.cli.test`, plus `--device`. LM fusion
-(--lm-path / --lm-weight, ROADMAP A14) and the separate speaker head
-(--spk-weight > 0, A12.2) are not ported yet: cli/test.py refuses them,
-naming the item.
+Counterpart of tal_asrd_tpu/cli/args.py (`get_argparser(is_train)`,
+`build_configs`): the same flags, so a reference invocation of `python -m
+tal_asrd_tpu.cli.test` or `.train` runs unchanged as `python -m
+tal_asrd_tpu_torch.cli.test` or `.train`, plus `--device`. LM fusion (--lm-path / --lm-weight, ROADMAP A14),
+the separate speaker head (--spk-weight > 0, A12.2) and a mesh of more than
+one device (--mesh-data / --mesh-model, A13) are not ported yet: the CLIs
+refuse them, naming the item.
+
+With the environment variable TAL_TINY_ARCH set, `build_configs` shrinks
+the model to the reference's debug architecture (TDS depths (1, 1, 1),
+width x 0.1, decoder width 64) for CPU runs of the whole CLI chain; the
+training and the evaluation run must both set it.
 """
 from __future__ import annotations
 
 import argparse
+import os
 
 from tal_asrd_tpu_torch.core.config import DecodeConfig, ModelConfig, TrainConfig
 
 
-def get_argparser() -> argparse.ArgumentParser:
+def get_argparser(is_train: bool = False) -> argparse.ArgumentParser:
     p = argparse.ArgumentParser()
     p.add_argument("--load", type=str, default=None)
     p.add_argument("--load-encoder", type=str, default=None)
@@ -86,6 +92,31 @@ def get_argparser() -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device of the model and the decode ('cpu' for a "
                         "run without a GPU)")
+    if is_train:
+        p.add_argument("--no-specaug", action="store_true", default=False,
+                       help="disable SpecAugment (narrowband/synthetic data)")
+        p.add_argument("--audio-int16", action="store_true", default=False,
+                       help="ship audio to the device as int16 (half the "
+                            "transfer; lossless for 16-bit PCM sources)")
+        p.add_argument("--ckpt-every", type=int, default=1,
+                       help="checkpoint every N epochs (and on the last)")
+        p.add_argument("--state-ckpt", choices=["last", "every"], default="last",
+                       help="write the full resume state (optimizer moments) on "
+                            "the final epoch only ('last') or on every "
+                            "checkpoint epoch")
+        p.add_argument("--cache-items", action="store_true", default=False,
+                       help="cache decoded aligned items in RAM (small corpora)")
+        p.add_argument("--num-utterances", type=str, default="1",
+                       help="consecutive utterances per aligned item; a comma "
+                            "list ('1,4') concatenates one aligned dataset per "
+                            "value")
+        p.add_argument("--no-restore-step", action="store_true", default=False,
+                       help="do not restore the step counter when --load points "
+                            "at this run's own checkpoint directory")
+        p.add_argument("--name", type=str, required=True)
+        p.add_argument("--project", type=str, default="asr")
+        p.add_argument("--checkpoint-path", type=str, default="./models/tal-asrd-tpu")
+        p.add_argument("--overfit-pct", type=float, default=0)
     return p
 
 
@@ -94,12 +125,18 @@ def build_configs(args, tokenizer=None):
 
     `tokenizer`, when given, sizes the text vocabulary (num_tokens =
     len(tokenizer) + num_speakers); without it ModelConfig's 10000 stays."""
+    tiny = {}
+    if os.environ.get("TAL_TINY_ARCH"):
+        tiny = dict(tds_depths=(1, 1, 1), width_mult=0.1, d_decoder_override=64)
+        print("[args] TAL_TINY_ARCH set: depths (1,1,1), width_mult 0.1, "
+              "d_decoder 64 — debug smoke architecture, NOT the 1x/2x model")
     model_cfg = ModelConfig(
         model_type=args.model_type,
         num_speakers=args.num_speakers,
         use_speaker_head=args.spk_weight > 0,
         enc_posenc=args.enc_posenc,
         **({"vocab_size": len(tokenizer)} if tokenizer is not None else {}),
+        **tiny,
     )
     train_cfg = TrainConfig(
         batch_size=args.batch_size,

@@ -17,6 +17,11 @@ metadata), and such an array is written as `bfloat16`. `core/convert.py`
 turns them into `torch.bfloat16` and back with a view; `is_bfloat16_bits`
 tells them apart from ordinary uint16 data.
 
+The partial loads of the training CLI work on those trees (flax names and
+layouts): `load_params_partial` (strict or not, speaker-embedding growth by
+`expand_speaker_embeddings`, the enc_posenc gate kept at zero when the
+checkpoint lacks it), `filter_subtree` and `merge_subtree`.
+
 `CheckpointManager` keeps every saved parameter tree (`ckpt_<step>.msgpack`,
 `latest.json`) and full training states (`state_<step>.msgpack`), and
 averages the last k parameter trees (`average_params`).
@@ -48,6 +53,44 @@ def is_bfloat16_bits(arr: np.ndarray) -> bool:
     if meta is not None and meta.get("bits_of") == "bfloat16":
         return True
     return arr.dtype.name == "bfloat16"
+
+
+def to_tensor(arr: Any) -> torch.Tensor:
+    """numpy leaf -> torch tensor (a copy), bfloat16 bit patterns included."""
+    arr = np.asarray(arr)
+    if is_bfloat16_bits(arr):
+        bits = np.array(arr, copy=True).view(np.int16).reshape(arr.shape)
+        return torch.from_numpy(bits).view(torch.bfloat16)
+    return torch.from_numpy(np.array(arr, copy=True))
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """torch tensor -> numpy leaf (a copy, on the host); bfloat16 becomes
+    its bit patterns tagged as such."""
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(BFLOAT16_BITS).copy()
+    return t.numpy().copy()
+
+
+def tree_leaves(tree: dict, prefix: Tuple[str, ...] = ()):
+    """(key path, leaf) of each leaf of a nested dict, in its order."""
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            yield from tree_leaves(value, prefix + (key,))
+        else:
+            yield prefix + (key,), value
+
+
+def tree_from_leaves(items) -> dict:
+    """The nested dict of (key path, leaf) pairs; `tree_leaves`' inverse."""
+    out: dict = {}
+    for path, value in items:
+        node = out
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = value
+    return out
 
 
 class _Reader:
@@ -284,6 +327,100 @@ def save_pytree(path: str, tree: Any) -> None:
     os.replace(tmp, path)
 
 
+# ---------------------------------------------------------------------------
+# Partial loads
+# ---------------------------------------------------------------------------
+class LeafSpec:
+    """Shape and numpy dtype of a parameter leaf, without its values: the
+    target of a partial load names what it expects without a fetch of the
+    model's parameters from the device."""
+
+    def __init__(self, shape, dtype):
+        self.shape = tuple(int(d) for d in shape)
+        self.dtype = dtype
+
+    def __repr__(self) -> str:
+        return f"LeafSpec({self.shape}, {self.dtype})"
+
+
+def cast_leaf(value: Any, dtype) -> np.ndarray:
+    """A numpy leaf in `dtype` (bfloat16 bit patterns included: widened
+    exactly, rounded to nearest even), through torch."""
+    empty = np.empty(0, dtype)
+    target = torch.bfloat16 if is_bfloat16_bits(empty) else torch.from_numpy(empty).dtype
+    return to_numpy(to_tensor(value).to(target))
+
+
+def filter_subtree(params: dict, prefix: str) -> dict:
+    """The subtree under `prefix` ('encoder', or 'a/b')."""
+    node = params
+    for part in prefix.split("/"):
+        node = node[part]
+    return node
+
+
+def merge_subtree(params: dict, prefix: str, subtree: dict) -> dict:
+    """`params` with the subtree at `prefix` replaced (the input is left as
+    it was)."""
+    def rec(node, parts):
+        node = dict(node)
+        node[parts[0]] = subtree if len(parts) == 1 else rec(node[parts[0]], parts[1:])
+        return node
+
+    return rec(params, prefix.split("/"))
+
+
+def expand_speaker_embeddings(embedding: np.ndarray, new_num_tokens: int,
+                              seed: int = 0) -> np.ndarray:
+    """Grow an embedding table [V, d] to `new_num_tokens` rows for newly
+    appended speaker tokens (or cut it to them). New rows are drawn
+    uniform(-1/sqrt(d), 1/sqrt(d)) by `np.random.RandomState(seed)` in
+    float64, as the reference draws them, then cast to the table's dtype."""
+    embedding = np.asarray(embedding)
+    old_n, d = embedding.shape
+    if new_num_tokens <= old_n:
+        return embedding[:new_num_tokens]
+    bound = 1.0 / np.sqrt(d)
+    rng = np.random.RandomState(seed)
+    extra = rng.uniform(-bound, bound, size=(new_num_tokens - old_n, d))
+    extra = cast_leaf(extra, embedding.dtype)
+    return np.concatenate([embedding, extra], 0).view(embedding.dtype)
+
+
+def load_params_partial(target_params: dict, ckpt_params: dict, strict: bool = True,
+                        expand_embeddings_to: Optional[int] = None) -> dict:
+    """`target_params` (a parameter tree whose leaves have .shape and .dtype:
+    numpy arrays or `LeafSpec`s) with each leaf replaced by the
+    checkpoint's, cast to the target leaf's dtype.
+
+    strict=False keeps the target leaf where the checkpoint lacks it or has
+    another shape (--no-strict); strict raises (KeyError, ValueError).
+    `expand_embeddings_to` first grows `embedding/embedding` to that many
+    rows. The enc_posenc gate `mem_pos_alpha` keeps the target's zero when
+    the checkpoint lacks it, strict or not: the gated model then equals the
+    checkpoint's."""
+    flat_c = dict(tree_leaves(ckpt_params))
+    out = []
+    for path, tv in tree_leaves(target_params):
+        cv = flat_c.get(path)
+        if cv is not None and expand_embeddings_to and path[-2:] == ("embedding", "embedding"):
+            cv = expand_speaker_embeddings(cv, expand_embeddings_to)
+        if cv is None and path[-1] == "mem_pos_alpha":
+            out.append((path, tv))
+            continue
+        if cv is None or tuple(np.shape(cv)) != tuple(tv.shape):
+            name = "/".join(path)
+            if strict and cv is None:
+                raise KeyError(f"Missing checkpoint param {name}")
+            if strict:
+                raise ValueError(f"Shape mismatch at {name}: ckpt {np.shape(cv)} "
+                                 f"vs target {tuple(tv.shape)}")
+            out.append((path, tv))
+        else:
+            out.append((path, cast_leaf(cv, tv.dtype)))
+    return tree_from_leaves(out)
+
+
 def _tree_map(fn, *trees):
     if isinstance(trees[0], dict):
         return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
@@ -293,7 +430,6 @@ def _tree_map(fn, *trees):
 def _mean_leaf(*leaves) -> np.ndarray:
     """Mean in float64, cast back to the leaves' dtype (bfloat16 bit
     patterns rounded to nearest even, through torch)."""
-    from tal_asrd_tpu_torch.core.convert import to_numpy, to_tensor
     ts = [to_tensor(x) for x in leaves]
     mean = sum(t.to(torch.float64) for t in ts) / len(ts)
     return to_numpy(mean.to(ts[0].dtype))

@@ -31,37 +31,23 @@ pointwise convs), any other 2-D weight to a Dense kernel [in, out], a 3-D
 weight to a grouped-conv kernel [K, C_in/G, C_out]. bfloat16 tensors become
 bfloat16 bit patterns (`core/checkpoint.py`), every other tensor a numpy
 array of its dtype.
+
+`params_spec` gives the tree's shapes and dtypes alone (the target of a
+partial load), and `load_partial_into` copies in what such a load returned.
 """
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Iterator, Tuple
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-from tal_asrd_tpu_torch.core.checkpoint import BFLOAT16_BITS, is_bfloat16_bits
+from tal_asrd_tpu_torch.core.checkpoint import (
+    BFLOAT16_BITS, LeafSpec, to_numpy, to_tensor, tree_from_leaves, tree_leaves)
 
 _LAYER_RE = re.compile(r"^layers_(\d+)$")
-
-
-def to_tensor(arr: Any) -> torch.Tensor:
-    """numpy leaf -> torch tensor (a copy), bfloat16 bit patterns included."""
-    arr = np.asarray(arr)
-    if is_bfloat16_bits(arr):
-        bits = np.array(arr, copy=True).view(np.int16).reshape(arr.shape)
-        return torch.from_numpy(bits).view(torch.bfloat16)
-    return torch.from_numpy(np.array(arr, copy=True))
-
-
-def _leaves(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()
-            ) -> Iterator[Tuple[Tuple[str, ...], Any]]:
-    for key, value in tree.items():
-        if isinstance(value, dict):
-            yield from _leaves(value, prefix + (key,))
-        else:
-            yield prefix + (key,), value
 
 
 def _convert_leaf(path: Tuple[str, ...], value: Any) -> Tuple[str, torch.Tensor]:
@@ -94,7 +80,7 @@ def params_to_state_dict(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     if set(tree.keys()) == {"params"}:
         tree = tree["params"]
     out: Dict[str, torch.Tensor] = {}
-    for path, value in _leaves(tree):
+    for path, value in tree_leaves(tree):
         name, tensor = _convert_leaf(path, value)
         if name in out:
             raise ValueError(f"two leaves map to {name}")
@@ -110,13 +96,30 @@ def load_into(model: nn.Module, tree: Dict[str, Any]) -> nn.Module:
     return model
 
 
-def to_numpy(t: torch.Tensor) -> np.ndarray:
-    """torch tensor -> numpy leaf (a copy, on the host); bfloat16 becomes
-    its bit patterns tagged as such."""
-    t = t.detach().cpu().contiguous()
-    if t.dtype == torch.bfloat16:
-        return t.view(torch.int16).numpy().view(BFLOAT16_BITS).copy()
-    return t.numpy().copy()
+def params_spec(model: nn.Module) -> Dict[str, Any]:
+    """The model's parameter tree in the reference's names and layouts with
+    a `LeafSpec` (shape, numpy dtype) for each leaf, read from the
+    parameters' metadata: nothing is copied from the device."""
+    leaves = []
+    for name, t in model.state_dict().items():
+        path, t = _unconvert_entry(name, t.detach().to("meta"))
+        dtype = BFLOAT16_BITS if t.dtype == torch.bfloat16 else np.dtype(
+            str(t.dtype).replace("torch.", ""))
+        leaves.append((path, LeafSpec(t.shape, dtype)))
+    return tree_from_leaves(leaves)
+
+
+def load_partial_into(model: nn.Module, tree: Dict[str, Any]) -> None:
+    """Fill `model` from a tree that `load_params_partial` returned on its
+    `params_spec`: every array leaf is converted and copied in; a `LeafSpec`
+    leaf (a parameter the load kept) leaves the parameter as it is."""
+    loaded = params_to_state_dict(tree_from_leaves(
+        (path, v) for path, v in tree_leaves(tree) if not isinstance(v, LeafSpec)))
+    own = model.state_dict()
+    unknown = sorted(set(loaded) - set(own))
+    if unknown:
+        raise KeyError(f"leaves with no parameter: {unknown}")
+    model.load_state_dict(loaded, strict=False)     # shapes checked
 
 
 def _unconvert_entry(name: str, t: torch.Tensor) -> Tuple[Tuple[str, ...], torch.Tensor]:

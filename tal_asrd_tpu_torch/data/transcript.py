@@ -11,6 +11,8 @@ The index is built episode by episode, in the transcript's order (sliding
 windows of num_utterances consecutive valid utterances with a
 discontinuity threshold; the whole episode when num_utterances is None),
 and cached in the split directory in the reference's format and file.
+`build_episode_durations` is the segment dataset's index: each episode's
+valid utterances and its duration.
 """
 from __future__ import annotations
 
@@ -118,10 +120,42 @@ def build_index(
     if not index:
         raise ValueError(f"Empty index for {data_dir}")
     if use_cache:
-        tmp = f"{cache_loc}.{os.getpid()}.tmp"
-        with open(tmp, "wb") as f:
-            pickle.dump((arghash, index), f)
-        os.replace(tmp, cache_loc)
+        _write_cache(cache_loc, arghash, index)
+    return index
+
+
+def _write_cache(cache_loc: str, arghash, index) -> None:
+    """Pickle (arghash, index) under a temporary name, then move it into
+    place, so a reader never sees half of it."""
+    tmp = f"{cache_loc}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
+        pickle.dump((arghash, index), f)
+    os.replace(tmp, cache_loc)
+
+
+def build_episode_durations(
+    data_dir: str, ext: str = ".wav", use_cache: bool = True,
+) -> List[Tuple[str, List[dict], float]]:
+    """The segment dataset's index: per episode (stub, valid utterances,
+    duration in seconds), in the transcript's order, cached in the split
+    directory in the reference's format and file."""
+    arghash = (ext, CACHE_VERSION)
+    cache_loc = os.path.join(data_dir, "cache_tpu_segment.pkl")
+    if use_cache and os.path.exists(cache_loc):
+        try:
+            with open(cache_loc, "rb") as f:
+                marker, index = pickle.load(f)
+            if marker == arghash:
+                return index
+        except (OSError, EOFError, pickle.UnpicklingError, ValueError, TypeError):
+            pass
+
+    index = []
+    for stub, utts in load_transcripts(data_dir).items():
+        dur = get_duration(os.path.join(data_dir, f"{stub}{ext}"))
+        index.append((stub, [u for u in utts if is_valid_utterance(u, dur)], dur))
+    if use_cache:
+        _write_cache(cache_loc, arghash, index)
     return index
 
 

@@ -7,17 +7,23 @@ modes `quick_test` (one train and one validation batch) and `overfit_pct`
 (train on a fraction of the loader, early stopping off). The full training
 state (parameters, LAMB moments, step) is written on the last epoch, or on
 every checkpoint epoch with `state_ckpt="every"`, and `fit(resume=True)`
-continues from the newest one. The generation spot check of the reference
-needs the tokenizer and is not ported yet.
+continues from the newest one. `generation_hook(step, logger)` (the
+system's `make_generation_spotcheck`) runs after each epoch-end
+validation; as in the reference, an exception there is printed and
+training goes on (the hook's records in the metrics file show whether it
+ran).
 
 A logged step's `step_time_s` is taken after its metrics are read back, so
-it includes the device's work.
+it includes the device's work. Each epoch's record also carries `train_s`
+(the wall time of its training batches, loader included), `loader_wait_s`
+(the part of it spent waiting for the next batch) and `audio_s` (the
+seconds of audio trained on).
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Iterable, Optional
+from typing import Callable, Iterable, Optional
 
 import numpy as np
 
@@ -41,14 +47,31 @@ class TrainerConfig:
     state_ckpt: str = "last"
 
 
+def _timed(iterable: Iterable, waits: list):
+    """The items of `iterable`, adding the seconds spent waiting for each
+    to waits[0]."""
+    it = iter(iterable)
+    while True:
+        t = time.time()
+        try:
+            item = next(it)
+        except StopIteration:
+            return
+        finally:
+            waits[0] += time.time() - t
+        yield item
+
+
 class Trainer:
     def __init__(self, system, cfg: TrainerConfig,
-                 logger: Optional[MetricsLogger] = None):
+                 logger: Optional[MetricsLogger] = None,
+                 generation_hook: Optional[Callable] = None):
         if cfg.state_ckpt not in ("last", "every"):
             raise ValueError(f"state_ckpt must be 'last' or 'every', got {cfg.state_ckpt!r}")
         self.system = system
         self.cfg = cfg
         self.logger = logger or MetricsLogger(name="train")
+        self.generation_hook = generation_hook
         self.ckpt = CheckpointManager(cfg.checkpoint_dir)
 
     def fit(self, train_loader: Iterable, val_loader: Iterable,
@@ -73,9 +96,13 @@ class Trainer:
             if hasattr(train_loader, "sampler") and hasattr(train_loader.sampler, "set_epoch"):
                 train_loader.sampler.set_epoch(epoch)
             t_epoch = time.time()
-            for bi, batch in enumerate(train_loader):
+            waits, samples = [0.0], 0
+            for bi, batch in enumerate(_timed(train_loader, waits)):
                 if n_batches is not None and bi >= n_batches:
                     break
+                # a device tensor's sum stays on the device until the epoch ends
+                lens = batch["audio_lens"]
+                samples = samples + (lens.sum() if hasattr(lens, "sum") else np.sum(lens))
                 t0 = time.time()
                 metrics = system.train_step(batch)
                 step = system.step
@@ -89,7 +116,14 @@ class Trainer:
                     break
                 if cfg.val_check_interval and step % cfg.val_check_interval == 0:
                     self._validate(val_loader, step)
+            train_s = time.time() - t_epoch
+            audio_s = float(samples) / system.model.frontend.sample_rate
             val_loss = self._validate(val_loader, system.step, n_batches=n_batches)
+            if self.generation_hook is not None:
+                try:
+                    self.generation_hook(system.step, self.logger)
+                except Exception as e:  # the spot check never stops training
+                    print(f"[trainer] generation hook failed: {e!r}")
             # the early-stop decision comes first, so a stopping epoch is
             # checkpointed as the last one (state included)
             if cfg.overfit_pct == 0:
@@ -111,7 +145,8 @@ class Trainer:
                 if with_state:
                     self.ckpt.save_state(system.step, tree)
             self.logger.log_metrics(
-                {"epoch_time_s": time.time() - t_epoch, "val_loss": val_loss},
+                {"epoch_time_s": time.time() - t_epoch, "val_loss": val_loss,
+                 "train_s": train_s, "loader_wait_s": waits[0], "audio_s": audio_s},
                 step=system.step)
             if stop or cfg.quick_test:
                 break

@@ -18,7 +18,12 @@ Counterpart of tal_asrd_tpu/train/system.py `ASRSystem`:
 The system is stateful, as PyTorch is: it owns the model, the optimizer and
 the step count; `state_tree` / `load_state_tree` carry them in the layout of
 the reference's TrainState ({"step", "params", "opt_state": {"count", "mu",
-"nu"}}, flax parameter names), which the checkpoint manager writes.
+"nu"}}, flax parameter names), which the checkpoint manager writes. `step`
+and the optimizer's update count (`update_count`, the schedule's count)
+part when the training CLI restores the step without the optimizer state,
+as the reference's do. `params_spec` / `load_params` carry a partial load
+(`core.checkpoint.load_params_partial`) on the reference's names, and
+`make_generation_spotcheck` builds the Trainer's spot check.
 
 Randomness. Each step's draws — one SpecAugment seed per example and the
 token replacement — come from a generator seeded by (TrainConfig.seed,
@@ -44,7 +49,13 @@ from tal_asrd_tpu_torch.core.config import (
     SpecAugmentConfig,
     TrainConfig,
 )
-from tal_asrd_tpu_torch.core.convert import params_to_state_dict, state_dict_to_params
+from tal_asrd_tpu_torch.core.convert import (
+    load_partial_into,
+    params_spec,
+    params_to_state_dict,
+    state_dict_to_params,
+)
+from tal_asrd_tpu_torch.decode.beam import BeamSearchSpec, beam_search
 from tal_asrd_tpu_torch.models.asr import ASRModel
 from tal_asrd_tpu_torch.ops.specaug import draw_seeds
 from tal_asrd_tpu_torch.train.losses import masked_token_loss
@@ -187,6 +198,41 @@ class ASRSystem:
         _, metrics = self.loss_fn(batch, False)
         return metrics
 
+    def make_generation_spotcheck(self, tokenizer, batch: Batch,
+                                  max_len: Optional[int] = None):
+        """The validation-time spot check: greedy decoding (beam 1,
+        force_output) of the first sample of `batch` through the unfused
+        model, at most `max_len` or 1.5 x the batch's text length new
+        tokens; its GOLD (the target's text tokens) and GENERATED text go to
+        `logger.log_generation`. Returns the Trainer's generation_hook,
+        hook(step, logger)."""
+        one = {k: torch.as_tensor(np.asarray(v)[:1]) for k, v in batch.items()}
+        n_text = len(tokenizer)
+        spec = BeamSearchSpec(
+            beam_size=1,
+            max_new_tokens=max_len or int(one["text"].shape[1] * 1.5),
+            eos_id=tokenizer.eos_token_id,
+            vocab_size=self.cfg.num_tokens,
+            text_vocab_size=n_text,
+            force_output=True,
+        )
+        tgt_n = int(one["text_mask"][0].sum())
+        ref_ids = [int(t) for t in one["text"][0, : tgt_n - 1] if t < n_text]
+
+        def hook(step: int, logger) -> None:
+            model = self.model.eval()
+            with torch.inference_mode():
+                enc = model.encode(one["audio"].to(self.device),
+                                   one["audio_lens"].to(self.device))
+                out = beam_search(model, enc, one["text"][:, :1].to(self.device), spec)
+                n = int(out["lengths"][0])
+                row = out["tokens"][0, :n].cpu().tolist()
+            hyp_ids = [t for t in row if t < n_text]
+            logger.log_generation(one["audio"][0].numpy(), tokenizer.decode(ref_ids),
+                                  tokenizer.decode(hyp_ids), step=step)
+
+        return hook
+
     # ------------------------------------------------------------------
     def params_tree(self) -> Dict[str, Any]:
         """The parameters as a numpy tree with the reference's names."""
@@ -203,8 +249,27 @@ class ASRSystem:
                 else torch.zeros_like(p) for n, p in named.items()})
         return {"step": np.asarray(self.step, np.int32),
                 "params": self.params_tree(),
-                "opt_state": {"count": np.asarray(self.step, np.int32),
+                "opt_state": {"count": np.asarray(self.update_count(), np.int32),
                               "mu": moment("exp_avg"), "nu": moment("exp_avg_sq")}}
+
+    def update_count(self) -> int:
+        """LAMB updates made since its state was last reset: the learning
+        rate schedule's count. It equals `step` unless the step counter was
+        restored without the optimizer state (a params-only warm start)."""
+        for state in self.optimizer.state.values():
+            return int(state["step"])
+        return 0
+
+    def params_spec(self) -> Dict[str, Any]:
+        """The parameter tree's shapes and dtypes (`core.convert.params_spec`),
+        the target of `core.checkpoint.load_params_partial`."""
+        return params_spec(self.model)
+
+    def load_params(self, tree: Dict[str, Any]) -> None:
+        """Copy in what `load_params_partial` returned on `params_spec()`;
+        the parameters it kept stay as they are. Optimizer state and step
+        are untouched."""
+        load_partial_into(self.model, tree)
 
     def load_state_tree(self, tree: Dict[str, Any]) -> None:
         """Restore parameters, moments and step from `state_tree`'s layout."""

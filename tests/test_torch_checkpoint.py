@@ -270,3 +270,216 @@ def test_average_last_means_the_trees(tmp_path):
     assert tckpt.is_bfloat16_bits(avg["b"])
     np.testing.assert_array_equal(to_tensor(avg["b"]).float().numpy(), np.full(3, 3.0))
     np.testing.assert_array_equal(mgr.load()["w"], np.full((2, 2), 4.0, np.float32))
+
+
+# ---------------------------------------------------------------------------
+# Partial loads and the checkpoint tools, against the JAX package's
+# ---------------------------------------------------------------------------
+def _tree(seed, rows=12, posenc=False):
+    """A small parameter tree in the model's naming (f32)."""
+    rng = np.random.RandomState(seed)
+    tree = {"embedding": {"embedding": rng.randn(rows, 4).astype(np.float32)},
+            "encoder": {"down_0": {"kernel": rng.randn(3, 2, 5).astype(np.float32),
+                                   "bias": rng.randn(5).astype(np.float32)}},
+            "decoder": {"layers_0": {"resweight": np.asarray(0.25, np.float32)}}}
+    if posenc:
+        tree["mem_pos_alpha"] = np.zeros((), np.float32)
+    return tree
+
+
+def _jax_partial(target, ckpt, **kw):
+    from tal_asrd_tpu.core.checkpoint import load_params_partial as j_load
+    return j_load(target, ckpt, **kw)
+
+
+def _assert_trees_equal(a, b):
+    fa, fb = dict(_flat(a)), dict(_flat(b))
+    assert sorted(fa) == sorted(fb)
+    for k in fa:
+        assert np.asarray(fa[k]).dtype == np.asarray(fb[k]).dtype, k
+        np.testing.assert_array_equal(np.asarray(fa[k]), np.asarray(fb[k]), err_msg=k)
+
+
+@pytest.mark.parametrize("case", ["missing", "shape"])
+def test_strict_partial_load_raises_as_the_reference(case):
+    target, ckpt = _tree(0), _tree(1)
+    if case == "missing":
+        del ckpt["encoder"]["down_0"]["bias"]
+    else:
+        ckpt["embedding"]["embedding"] = ckpt["embedding"]["embedding"][:5]
+    err = KeyError if case == "missing" else ValueError
+    with pytest.raises(err):
+        _jax_partial(target, ckpt)
+    with pytest.raises(err):
+        tckpt.load_params_partial(target, ckpt)
+
+
+def test_no_strict_keeps_the_target_leaf_as_the_reference():
+    target, ckpt = _tree(0), _tree(1)
+    del ckpt["encoder"]["down_0"]["bias"]
+    ckpt["embedding"]["embedding"] = ckpt["embedding"]["embedding"][:5]
+    mine = tckpt.load_params_partial(target, ckpt, strict=False)
+    _assert_trees_equal(mine, _jax_partial(target, ckpt, strict=False))
+    np.testing.assert_array_equal(mine["encoder"]["down_0"]["bias"],
+                                  target["encoder"]["down_0"]["bias"])
+    np.testing.assert_array_equal(mine["encoder"]["down_0"]["kernel"],
+                                  ckpt["encoder"]["down_0"]["kernel"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_speaker_embedding_expansion_is_bit_equal_to_the_reference(dtype):
+    """New rows uniform(+-1/sqrt(d)) from RandomState(seed), as JAX's (a bf16
+    table: rows rounded to bf16, as ml_dtypes rounds them)."""
+    from tal_asrd_tpu.core.checkpoint import expand_speaker_embeddings as j_expand
+    emb = np.random.RandomState(5).randn(300, 64).astype(np.float32)
+    if dtype == "bfloat16":
+        j_emb = np.asarray(jnp.asarray(emb, jnp.bfloat16))
+        emb = j_emb.view(np.uint16).view(tckpt.BFLOAT16_BITS)
+    else:
+        j_emb = emb
+    for n in (308, 300, 290):
+        mine = tckpt.expand_speaker_embeddings(emb, n)
+        ref = j_expand(j_emb, n)
+        assert mine.shape == ref.shape == (n, 64)
+        assert tckpt.is_bfloat16_bits(mine) == (dtype == "bfloat16")
+        np.testing.assert_array_equal(mine.view(np.uint16) if dtype == "bfloat16" else mine,
+                                      ref.view(np.uint16) if dtype == "bfloat16" else ref)
+
+
+def test_load_decoder_expands_into_the_target_as_the_reference():
+    """--load-decoder: not strict, the donor's table grown to the target's
+    rows before the shape check."""
+    target, donor = _tree(0, rows=12), _tree(1, rows=9)
+    mine = tckpt.load_params_partial(target, donor, strict=False, expand_embeddings_to=12)
+    _assert_trees_equal(mine, _jax_partial(target, donor, strict=False,
+                                           expand_embeddings_to=12))
+    np.testing.assert_array_equal(mine["embedding"]["embedding"][:9],
+                                  donor["embedding"]["embedding"])
+
+
+@pytest.mark.parametrize("strict", [True, False])
+def test_mem_pos_alpha_stays_zero_when_the_donor_lacks_it(strict):
+    target, ckpt = _tree(0, posenc=True), _tree(1)
+    mine = tckpt.load_params_partial(target, ckpt, strict=strict)
+    _assert_trees_equal(mine, _jax_partial(target, ckpt, strict=strict))
+    assert float(mine["mem_pos_alpha"]) == 0.0
+
+
+def test_bf16_checkpoint_leaves_widen_exactly_into_f32_targets(trees):
+    """The tracked checkpoint's bf16 leaves into an f32 target (its shapes,
+    float32 LeafSpecs): every value exact, as JAX's np.asarray(cv, float32)."""
+    spec = tckpt.tree_from_leaves((k, tckpt.LeafSpec(v.shape, np.dtype(np.float32)))
+                                  for k, v in tckpt.tree_leaves(trees[0]))
+    ours = dict(_flat(tckpt.load_params_partial(spec, trees[0])))
+    ref = dict(_flat(_jax_partial(spec, trees[1])))
+    assert sorted(ours) == sorted(ref) and len(ours) == 151
+    for k, a in ours.items():
+        assert a.dtype == np.float32, k
+        np.testing.assert_array_equal(a, np.asarray(ref[k]), err_msg=k)
+
+
+def test_params_spec_names_the_models_tree_without_its_values():
+    from tal_asrd_tpu_torch.core.convert import params_spec, state_dict_to_params
+    cfg = ModelConfig(model_type="1x", num_speakers=4, vocab_size=32, tds_depths=(1, 1, 1),
+                      width_mult=0.1, d_decoder_override=32)
+    model = ASRModel(cfg, dtype=torch.float32, device="cpu")
+    spec = dict(_flat(params_spec(model)))
+    tree = dict(_flat(state_dict_to_params(model.state_dict())))
+    assert list(spec) == list(tree)
+    for k, v in tree.items():
+        assert isinstance(spec[k], tckpt.LeafSpec) and spec[k].shape == v.shape, k
+        assert spec[k].dtype == v.dtype == np.float32, k
+    model.to(torch.bfloat16)
+    assert all(tckpt.is_bfloat16_bits(np.empty(0, s.dtype))
+               for s in dict(_flat(params_spec(model))).values())
+
+
+def test_load_encoder_replaces_only_the_encoder(tmp_path):
+    """--load-encoder through the CLI's load_weights: encoder parameters
+    from the donor, everything else as it was; merge_subtree and
+    filter_subtree as the reference's."""
+    from tal_asrd_tpu.core.checkpoint import filter_subtree as j_filter
+    from tal_asrd_tpu.core.checkpoint import merge_subtree as j_merge
+    from tal_asrd_tpu_torch.cli.train import load_weights
+    from tal_asrd_tpu_torch.core.config import TrainConfig
+    from tal_asrd_tpu_torch.train.system import ASRSystem
+    from tests.test_torch_helpers import seeded_params
+
+    a, b = _tree(0), _tree(1)
+    _assert_trees_equal(tckpt.merge_subtree(a, "encoder", tckpt.filter_subtree(b, "encoder")),
+                        j_merge(a, "encoder", j_filter(b, "encoder")))
+    cfg = ModelConfig(model_type="1x", num_speakers=4, vocab_size=32, tds_depths=(1, 1, 1),
+                      width_mult=0.1, d_decoder_override=32)
+    system = ASRSystem(cfg, TrainConfig(), device="cpu", compute_dtype=torch.float32,
+                       generator=torch.Generator().manual_seed(0))
+    before = {k: v.clone() for k, v in system.model.state_dict().items()}
+    donor = seeded_params(system.params_spec(), 3)
+    path = str(tmp_path / "donor.msgpack")
+    tckpt.save_pytree(path, donor)
+
+    class Args:
+        load, load_decoder, load_encoder, no_strict = None, None, path, False
+    load_weights(Args, system, cfg.num_tokens)
+    want = params_to_state_dict(donor)
+    for name, t in system.model.state_dict().items():
+        expect = want[name] if name.startswith("encoder.") else before[name]
+        assert torch.equal(t, expect), name
+    assert any(n.startswith("encoder.") for n in want)
+
+
+@pytest.mark.parametrize("cmd", ["average-ckpt", "expand-speakers"])
+def test_tools_write_the_reference_tools_leaves(tmp_path, cmd):
+    """The port's cli.tools and the JAX package's on the same two tiny
+    checkpoints: every output leaf bit-equal (f32 leaves; expand-speakers
+    also the bf16 one), average-ckpt equal to average_params."""
+    from tal_asrd_tpu.cli.tools import main as j_tools
+    from tal_asrd_tpu_torch.cli.tools import main as tools
+    bf = lambda x: np.asarray(jnp.asarray(x, jnp.bfloat16)).view(np.uint16).view(
+        tckpt.BFLOAT16_BITS)
+    ckpts = tmp_path / "run"
+    mgr = tckpt.CheckpointManager(str(ckpts))
+    for step, seed in ((10, 0), (20, 1)):
+        tree = _tree(seed)
+        tree["encoder"]["down_0"]["bias"] = bf(tree["encoder"]["down_0"]["bias"] * 1.37)
+        mgr.save(step, tree)
+    outs = {}
+    for name, main in (("port", tools), ("jax", j_tools)):
+        out = str(tmp_path / f"{name}.msgpack")
+        if cmd == "average-ckpt":
+            main(["average-ckpt", "--ckpt-dir", str(ckpts), "--last-k", "3", "--out", out])
+        else:
+            main(["expand-speakers", "--ckpt", str(ckpts / "ckpt_00000020.msgpack"),
+                  "--num-tokens", "20", "--out", out])
+        outs[name] = tckpt.load_pytree(out)
+    mine, ref = dict(_flat(outs["port"])), dict(_flat(outs["jax"]))
+    assert sorted(mine) == sorted(ref)
+    bf16_leaf = "encoder/down_0/bias"
+    if cmd == "average-ckpt":
+        # The reference averages a bfloat16 leaf in its integer branch
+        # (ml_dtypes' bfloat16 is no np.floating): the sum is rounded to
+        # bfloat16, then divided into a float32 leaf (ROADMAP C11). The port
+        # keeps the leaf's dtype: the exact mean, rounded once.
+        a, b = mine.pop(bf16_leaf), ref.pop(bf16_leaf)
+        assert tckpt.is_bfloat16_bits(a) and b.dtype == np.float32
+        leaves = [to_tensor(mgr.load(s)["encoder"]["down_0"]["bias"]).double()
+                  for s in (10, 20)]
+        assert torch.equal(to_tensor(a), ((leaves[0] + leaves[1]) / 2).to(torch.bfloat16))
+    for k, a in mine.items():
+        assert a.dtype == ref[k].dtype and a.shape == ref[k].shape, k
+        assert a.tobytes() == ref[k].tobytes(), k
+    if cmd == "average-ckpt":
+        avg = dict(_flat(tckpt.average_params([mgr.load(10), mgr.load(20)])))
+        for k, a in mine.items():
+            assert a.tobytes() == avg[k].tobytes(), k
+    else:
+        assert outs["port"]["embedding"]["embedding"].shape == (20, 4)
+
+
+@pytest.mark.parametrize("cmd,item", [
+    ("convert-audio", "A16"), ("merge-outputs", "A16"), ("librispeech-format", "A16"),
+    ("wder-format", "A16"), ("diar-features", "A17"), ("synth-sad-stress", "A18")])
+def test_unported_tools_exit_naming_their_item(cmd, item):
+    from tal_asrd_tpu_torch.cli.tools import main as tools
+    with pytest.raises(SystemExit) as e:
+        tools([cmd, "--out-dir", "x"])
+    assert item in str(e.value) and "not ported" in str(e.value)

@@ -70,3 +70,30 @@ def test_seeded_like_is_deterministic_and_bumps_scalars():
     one, two = seeded_like(tree, 5), seeded_like(tree, 5)
     np.testing.assert_array_equal(one["a"]["kernel"], two["a"]["kernel"])
     assert float(one["rw"]) == np.float32(0.4) and one["a"]["kernel"].std() > 0
+
+
+def seeded_params(spec, seed, scalar_bump=0.4):
+    """A parameter tree (nested dicts) of the shapes of `spec`'s leaves
+    (anything with .shape: arrays, LeafSpecs), filled as `seeded_like` fills
+    a flax tree, leaf by leaf in sorted key order, in float32: the same
+    numbers for the same shapes whichever package produced `spec`."""
+    rng = np.random.default_rng(seed)
+
+    def fill(node):
+        out = {}
+        for key in sorted(node):
+            value = node[key]
+            if isinstance(value, dict):
+                out[key] = fill(value)
+                continue
+            shape = tuple(value.shape)
+            if len(shape) == 0:
+                out[key] = np.asarray(scalar_bump, np.float32)
+            elif len(shape) == 1:
+                out[key] = (rng.standard_normal(shape) * 0.1).astype(np.float32)
+            else:
+                fan_in = int(np.prod(shape[:-1]))
+                out[key] = (rng.standard_normal(shape) / np.sqrt(fan_in)).astype(np.float32)
+        return out
+
+    return fill(spec)

@@ -69,9 +69,15 @@ def test_the_long_form_modules_are_among_the_checked_ones():
     assert not {"tal_asrd_tpu_torch.vad.sad", "tal_asrd_tpu_torch.vad.pyannet"} & mods
 
 
+def test_the_training_cli_modules_are_among_the_checked_ones():
+    mods = set(_port_modules())
+    assert {"tal_asrd_tpu_torch.cli.train", "tal_asrd_tpu_torch.cli.tools",
+            "tal_asrd_tpu_torch.core.utils", "tal_asrd_tpu_torch.data.segment"} <= mods
+
+
 @pytest.mark.parametrize("target", ["ASRModel", "make_generate_fn", "ASRSystem",
                                     "EvalRunner", "cli.test", "Transcriber",
-                                    "cli.transcribe", "cli.vad"])
+                                    "cli.transcribe", "cli.vad", "cli.train"])
 def test_entry_points_default_to_cuda(target):
     from tal_asrd_tpu_torch.cli import transcribe as cli_transcribe
     from tal_asrd_tpu_torch.cli import vad as cli_vad
@@ -87,6 +93,9 @@ def test_entry_points_default_to_cuda(target):
         "cli.transcribe": (cli_transcribe.get_parser, ["--audio", "a", "--load", "c",
                                                        "--tokenizer", "t"]),
         "cli.vad": (cli_vad.get_parser, ["--data-dir", "d", "--out-dir", "o"]),
+        "cli.train": (lambda: get_argparser(is_train=True),
+                      ["--train-data", "d", "--valid-data", "d", "--tokenizer", "t",
+                       "--model-type", "1x", "--name", "n"]),
     }
     if target in parsers:
         make, argv = parsers[target]
