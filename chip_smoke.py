@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases eval      # ... + the aligned evaluation only
     python3 chip_smoke.py --phases unaligned # ... + the long-form evaluation only
     python3 chip_smoke.py --phases train_cli # ... + the training CLI only
+    python3 chip_smoke.py --phases lm        # ... + LM shallow fusion only
 
 Builds the port's CUDA kernels from tal_asrd_tpu_torch/csrc/ with nvcc, holds
 each against its plain PyTorch version on the card at the shapes its paths
@@ -53,6 +54,15 @@ compute) and holds bf16 against f32 and grad_acc=2 against 1;
 `train_1x_checkpoint` takes 2 steps from the tracked checkpoint, saves and
 reloads it, and decodes with both sets of weights through K1.
 
+Then LM shallow fusion (`lm_fusion_1x`, `--phases lm`): `python -m
+tal_asrd_tpu_torch.cli.train_lm` at the eval CLI's LM shape (512 / 4 heads /
+6 layers, batch 64) on scripts/ensure_corpus.sh's splits extended at their
+seeds, then the eval CLI's three legs with the seeded LM of
+tests/fixtures/torch_lm_reference.json (rebuilt with numpy), unfused and
+fused, in f32 as that JAX CPU reference, held against its figures; then the
+three legs fused with the trained LM and without an LM, in bf16 as users
+run them. K1 is checked in f32 at the parity runs' shapes.
+
 Then it runs the training CLI (`train_cli_1x`): `python -m
 tal_asrd_tpu_torch.cli.train`'s `main` at scripts/accuracy.sh's last
 phase's flags (B = 16, --max-secs 28.5, --shiftaug --cache-items
@@ -68,7 +78,7 @@ K4 at [16, 3001, 80], both on int16 audio.
 
 Prints one JSON object per line: `device`, one `kernel` line per check,
 `k3_vs_k1_chain`, `k1_determinism`, `k3_determinism`, `kernel_timing`, one `serve_*` line per configuration,
-`eval_aligned_1x`, `prefill_handoff`, `eval_unaligned_1x`, `train_2x`,
+`eval_aligned_1x`, `prefill_handoff`, `eval_unaligned_1x`, `lm_fusion_1x`, `train_2x`,
 `train_1x_checkpoint`, `train_cli_1x`, `kernels` (every kernel of each path with
 its launch count in that path's one timed run, its error against the plain
 version, its time, the plain version's, a library call's where one exists,
@@ -2035,6 +2045,384 @@ def run_train_cli_1x(torch, dev, root, out_dir, card, trace=False):
             "k2_eval": k2_recs.get((64, EVAL_SAMPLES), k2)}
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: LM shallow fusion (lm_fusion_1x)
+# ---------------------------------------------------------------------------
+# The LM trains at the eval CLI's LM shape (hidden 512, 4 heads, 6 layers,
+# rows of 512 tokens) with --batch-size 64. scripts/ensure_corpus.sh's valid
+# split (3 episodes of 120 s) holds 574 tokens, one row, and its train split
+# (100 episodes) 37 rows: no batch of 64 at all, and the reference's
+# perplexity of no batch is NaN. So both splits are extended at their seeds
+# (the synthesiser draws episode after episode from one seeded stream, so
+# the first 100 and 3 episodes are ensure_corpus.sh's): valid to 200
+# episodes (one batch of 64 rows), train to 400 (two batches an epoch).
+LM_FIXTURE = os.path.join("tests", "fixtures", "torch_lm_reference.json")
+LM_SPLITS = {"train": dict(episodes=400, seed=0), "valid": dict(episodes=200, seed=101)}
+LM_SPLITS_NOTE = ("scripts/ensure_corpus.sh's train (100 episodes) and valid (3) splits "
+                  "extended at their seeds to 400 and 200 episodes of 120 s, built by "
+                  "`cli.tools synth-corpus`: at 512 tokens a row its valid split is one "
+                  "row, and batches of 64 need 64")
+LM_TRAIN_FLAGS = ["--hidden-size", "512", "--layers", "6", "--attn-heads", "4",
+                  "--max-len", "512", "--batch-size", "64", "--max-epochs", "16"]
+LM_LEGS = {"aligned": [], "sm": ["--unaligned"], "vad": ["--unaligned", "--vad-windows"]}
+
+
+def lm_reference_script(root):
+    """scripts/torch_lm_reference.py, for `seeded_lm_params` and the
+    fixture's constants (it needs numpy alone)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_lm_reference", os.path.join(root, "scripts", "torch_lm_reference.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_eval_counted(torch, argv, counters, compute_dtype=None):
+    """`cli.test.main(argv)` with the kernel counts set to 0 just before it
+    and read just after; the fused decoder's steps and the LM's steps and
+    prefills counted; each beam search's launches kept with its audio
+    bucket. `compute_dtype` replaces the CLI's system's (bf16). Returns
+    (result, seconds, record)."""
+    from tal_asrd_tpu_torch.cli import test as cli_test
+    from tal_asrd_tpu_torch.decode.fused_step import FusedASRDecoder
+    from tal_asrd_tpu_torch.eval.runner import EvalRunner
+    from tal_asrd_tpu_torch.models.lm import DecoderLMModel
+
+    counts = {"decode_steps": 0, "lm_steps": 0, "lm_prefills": 0}
+    by_bucket = {}
+    patched = [(FusedASRDecoder, "decode_step"), (DecoderLMModel, "decode_step"),
+               (DecoderLMModel, "decode_prefill"), (EvalRunner, "_generate_fn"),
+               (cli_test, "ASRSystem")]
+    originals = {(obj, name): getattr(obj, name) for obj, name in patched}
+
+    def counting(cls, name, key):
+        fn = originals[(cls, name)]
+
+        def wrapped(*args, **kwargs):
+            counts[key] += 1
+            return fn(*args, **kwargs)
+        return wrapped
+
+    def bucketed(self, max_new):
+        run = originals[(EvalRunner, "_generate_fn")](self, max_new)
+
+        def call(audio, lens, prime):
+            before = {k: fn.launches for k, fn in counters.items()}
+            out = run(audio, lens, prime)
+            b = by_bucket.setdefault(int(audio.shape[1]) // 16000,
+                                     dict.fromkeys(["calls", *counters], 0))
+            b["calls"] += 1
+            for k, fn in counters.items():
+                b[k] += fn.launches - before[k]
+            return out
+        return call
+
+    FusedASRDecoder.decode_step = counting(FusedASRDecoder, "decode_step", "decode_steps")
+    DecoderLMModel.decode_step = counting(DecoderLMModel, "decode_step", "lm_steps")
+    DecoderLMModel.decode_prefill = counting(DecoderLMModel, "decode_prefill", "lm_prefills")
+    EvalRunner._generate_fn = bucketed
+    if compute_dtype is not None:
+        cli_test.ASRSystem = functools.partial(cli_test.ASRSystem, compute_dtype=compute_dtype)
+    try:
+        # The main path's run: counts set to 0 just before it, read just after.
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = cli_test.main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+    finally:
+        for (obj, name), fn in originals.items():
+            setattr(obj, name, fn)
+    return res, secs, dict(counts, launches=launches, by_bucket=by_bucket)
+
+
+def against_reference(leg, steps, ref_leg):
+    """Where the run's tokens part from the JAX CLI's: per episode of the
+    state machine the first differing token (-1: none, or the shorter
+    length), and the VAD windows whose chosen rows equal the reference's."""
+    if leg == "sm":
+        return [next((i for i, (a, b) in enumerate(zip(st["tokens"], ep["tokens"])) if a != b),
+                     -1 if len(st["tokens"]) == len(ep["tokens"])
+                     else min(len(st["tokens"]), len(ep["tokens"])))
+                for st, ep in zip(steps, ref_leg["episodes"])]
+    want = [[w["tokens"][:-1] if w["found"] and w["length"] > 1 else w["tokens"]
+             for w in ep["windows"]] for ep in ref_leg["episodes"]]
+    return {"windows_equal": sum(a == b for st, w in zip(steps, want)
+                                 for a, b in zip(st["window_tokens"], w)),
+            "windows": sum(len(w) for w in want)}
+
+
+def run_lm_fusion_1x(torch, dev, root, out_dir, card, trace=False):
+    """LM shallow fusion on the card. (1) `python -m
+    tal_asrd_tpu_torch.cli.train_lm` (its `main`) at the eval CLI's LM
+    shape, batch 64, 16 epochs of two steps on the LM_SPLITS; gates: the
+    last validation perplexity below the first, the last checkpoint read
+    back equal to the trained parameters leaf for leaf. (2) The eval CLI on
+    the tracked checkpoint with the fixture's seeded LM (rebuilt here with
+    numpy) at its weight, over the three legs, each unfused and fused, its
+    system computing in f32 as the fixture's JAX CLI does (in bf16 the two
+    packages' logits part by up to 0.9 at some steps, and the LM's
+    continuous scores turn that into other tokens; see
+    scripts/torch_lm_reference.py). Gates against the JAX CLI's figures on
+    the CPU (LM_FIXTURE): aligned, unfused within 1.0 point and fused within
+    0.5 of unfused; the state machine 2.0 (WER) / 3.0 (WDER) for both; VAD
+    windows unfused within 1.0, fused within 0.5 of unfused or both within
+    0.5 of the reference; K1 four launches a fused decode step, K2
+    launched, the LM stepped. (3) The
+    three legs fused with the trained LM, and without an LM, recorded, in
+    bf16 as users run them. With `trace`, each fused run of (3) with the
+    trained LM is repeated once under torch.profiler."""
+    from tal_asrd_tpu_torch.cli import train_lm as cli_train_lm
+    from tal_asrd_tpu_torch.core.checkpoint import load_pytree, save_pytree, tree_leaves
+    from tal_asrd_tpu_torch.data.synth import build_synth_corpus
+    from tal_asrd_tpu_torch.eval.convert import score_test_result
+    from tal_asrd_tpu_torch.ops.cuda_decode import fused_layer_step
+    from tal_asrd_tpu_torch.ops.cuda_kernels import fused_logmel_project
+    from tal_asrd_tpu_torch.train.lm_system import LMSystem
+
+    ref_script = lm_reference_script(root)
+    with open(os.path.join(root, LM_FIXTURE)) as f:
+        ref = json.load(f)["seeded_eval"]
+    base = os.path.join(out_dir, "lm_fusion")
+    split = os.path.join(base, "test")
+    bpe = os.path.join(root, "accuracy_release", "bpe.model")
+    tracked = os.path.join(root, "accuracy_release", "avg_last_3.bf16.msgpack")
+    counters = {"fused_layer_step": fused_layer_step,
+                "fused_logmel_project": fused_logmel_project}
+
+    # the LM's splits, synthesised in two processes while (2) runs
+    lm_dirs = {k: os.path.join(base, "lm_" + k) for k in LM_SPLITS}
+    t_splits = time.perf_counter()
+    procs = {k: subprocess.Popen(
+        [sys.executable, "-m", "tal_asrd_tpu_torch.cli.tools", "synth-corpus",
+         "--out-dir", lm_dirs[k], "--episodes", str(s["episodes"]), "--episode-seconds",
+         "120", "--speakers", "8", "--seed", str(s["seed"])],
+        cwd=root, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+        for k, s in LM_SPLITS.items()}
+    try:
+        build_synth_corpus(split, **EVAL_SPLIT)
+        lm = ref["lm"]
+        seeded = os.path.join(base, "seeded_lm.msgpack")
+        save_pytree(seeded, ref_script.seeded_lm_params(lm["vocab"], lm["seed"], lm["scalars"],
+                                                        hidden=lm["hidden"], layers=lm["layers"]))
+
+        def cli_argv(leg, name, lm_path, fused):
+            return (["--train-data", split, "--valid-data", split, "--test-data", split,
+                     "--tokenizer", bpe, "--model-type", "1x", "--num-speakers", "8",
+                     "--load", tracked, "--out-dir", os.path.join(base, f"{leg}_{name}"),
+                     "--device", dev] + LM_LEGS[leg]
+                    + (["--lm-path", lm_path, "--lm-weight", str(lm["weight"])]
+                       if lm_path else []) + (["--fused-decode"] if fused else []))
+
+        def leg_run(leg, name, lm_path, fused, compute_dtype=None):
+            res, secs, r = run_eval_counted(torch, cli_argv(leg, name, lm_path, fused), counters,
+                                            compute_dtype)
+            scored = score_test_result(os.path.join(base, f"{leg}_{name}", "test_result.pkl"))
+            r.update(wer_pct=100.0 * scored["overall_wer"],
+                     wder_pct=100.0 * scored["overall_wder"],
+                     n_words=int(sum(scored["n_words"])), seconds=secs,
+                     audio_seconds_per_second=EVAL_SPLIT["n_episodes"]
+                     * EVAL_SPLIT["episode_seconds"] / secs)
+            if compute_dtype is not None and leg != "aligned":
+                r["against_reference"] = against_reference(leg, res["steps"], ref["legs"][leg])
+            del res
+            torch.cuda.empty_cache()
+            return r
+
+        # ---- (2) the seeded LM against the JAX CLI -------------------------------
+        leg_run("aligned", "warmup", seeded, False)          # not counted
+        seeded_runs = {}
+        for leg in LM_LEGS:
+            for name, fused in (("unfused", False), ("fused", True)):
+                seeded_runs[(leg, name)] = leg_run(leg, f"seeded_{name}", seeded, fused,
+                                                   torch.float32)
+
+        # ---- (1) train the LM ---------------------------------------------------------
+        t_wait = time.perf_counter()
+        for k, p in procs.items():
+            if p.wait() != 0:
+                fail(f"lm_fusion_1x: synth-corpus of the LM's {k} split failed: "
+                     f"{p.stderr.read()[-2000:]}")
+        split_seconds = time.perf_counter() - t_splits
+        split_wait_seconds = time.perf_counter() - t_wait
+        step_of, step_times, tokens = LMSystem.train_step, [], [0]
+
+        def timed_step(self, toks, mask):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = step_of(self, toks, mask)
+            torch.cuda.synchronize()
+            step_times.append(time.perf_counter() - t0)
+            tokens[0] += int(mask[:, 1:].sum())
+            return loss
+
+        LMSystem.train_step = timed_step
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            trained = cli_train_lm.main(
+                ["--train-data", lm_dirs["train"], "--valid-data", lm_dirs["valid"],
+                 "--tokenizer", bpe, "--name", "lm", "--checkpoint-path",
+                 os.path.join(base, "ckpts"), "--device", dev] + LM_TRAIN_FLAGS)
+        finally:
+            LMSystem.train_step = step_of
+        torch.cuda.synchronize()
+        train_seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        for d in lm_dirs.values():            # 2.3 GB of wavs the LM never read
+            shutil.rmtree(d, ignore_errors=True)
+        last = trained["epochs"][-1]["path"]
+        written, held = dict(tree_leaves(load_pytree(last))), dict(tree_leaves(
+            trained["system"].params()))
+        round_trip = sorted(written) == sorted(held) and all(
+            written[k].dtype == held[k].dtype and written[k].tobytes() == held[k].tobytes()
+            for k in held)
+        ppls = [e["ppl"] for e in trained["epochs"]]
+        train_rec = {
+            "splits": LM_SPLITS, "splits_note": LM_SPLITS_NOTE,
+            "split_seconds_before_training": split_seconds,
+            "split_wait_seconds": split_wait_seconds,
+            "flags": LM_TRAIN_FLAGS, "steps": trained["system"].step,
+            "epochs": len(trained["epochs"]), "ppl_per_epoch": ppls,
+            "losses": [e["losses"] for e in trained["epochs"]],
+            "step_ms_median": 1e3 * float(np.median(step_times[1:])),
+            "step_ms_first": 1e3 * step_times[0],
+            "tokens_per_step": tokens[0] / len(step_times),
+            "tokens_per_second": tokens[0] / len(step_times) / float(np.median(step_times[1:])),
+            "train_seconds_with_checkpoints": train_seconds, "peak_memory_gb": peak / 1e9,
+            "checkpoint_round_trip_equal": round_trip, "leaves": len(held)}
+        del trained
+        torch.cuda.empty_cache()
+
+        # ---- (3) the trained LM, and no LM, fused --------------------------------------
+        trained_runs = {leg: leg_run(leg, "trained_fused", last, True) for leg in LM_LEGS}
+        if trace:
+            from tal_asrd_tpu_torch.cli import test as cli_test
+            for leg in LM_LEGS:
+                profile_call(torch, f"lm_fusion_1x:{leg}:trained_fused", cli_test.main,
+                             (cli_argv(leg, "trained_traced", last, True),))
+        no_lm_runs = {leg: leg_run(leg, "no_lm_fused", None, True) for leg in LM_LEGS}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+    keep = ("wer_pct", "wder_pct", "n_words", "seconds", "audio_seconds_per_second",
+            "launches", "decode_steps", "lm_steps", "lm_prefills", "by_bucket",
+            "against_reference")
+    rec = {"phase": "lm_fusion_1x", "card": card, "train_lm": train_rec,
+           "seeded": {f"{leg}_{name}": {k: r[k] for k in keep if k in r}
+                      for (leg, name), r in seeded_runs.items()},
+           "seeded_lm": ref["lm"],
+           "reference_jax_cpu": {leg: {k: ref["legs"][leg][k] for k in ("wer_pct", "wder_pct")}
+                                 for leg in LM_LEGS},
+           "reference_words_changed_share": ref["words_changed_share"],
+           "trained_fused": {leg: {k: r[k] for k in keep if k in r}
+                             for leg, r in trained_runs.items()},
+           "no_lm_fused": {leg: {k: r[k] for k in keep if k in r}
+                           for leg, r in no_lm_runs.items()}}
+    emit(rec)
+
+    # ---- gates -----------------------------------------------------------------
+    problems = []
+    if not (np.isfinite(ppls).all() and ppls[-1] < ppls[0]):
+        problems.append(f"the validation perplexity did not fall: {ppls}")
+    if not round_trip:
+        problems.append("the trained LM's last checkpoint does not read back leaf for leaf")
+    runs = {**seeded_runs, **{(leg, "trained"): r for leg, r in trained_runs.items()},
+            **{(leg, "no_lm"): r for leg, r in no_lm_runs.items()}}
+    for (leg, name), r in runs.items():
+        fused = name != "unfused"
+        want_k1 = 4 * r["decode_steps"] if fused else 0
+        if (r["launches"]["fused_layer_step"] != want_k1 or (fused and r["decode_steps"] == 0)
+                or r["launches"]["fused_logmel_project"] <= 0
+                or (r["lm_steps"] == 0) != (name == "no_lm")):
+            problems.append(f"{leg}/{name}: launches {r['launches']} after {r['decode_steps']} "
+                            f"fused steps, {r['lm_steps']} LM steps")
+    # The bands of eval_aligned_1x and eval_unaligned_1x, both sides in f32
+    for leg, to_ref, fused_band, runs_to_ref in (
+            ("aligned", (1.0, 1.0), (0.5, 0.5), ("unfused",)),
+            ("sm", (2.0, 3.0), (2.0, 3.0), ("unfused", "fused")),
+            ("vad", (1.0, 1.0), (0.5, 0.5), ("unfused",))):
+        u, fz = seeded_runs[(leg, "unfused")], seeded_runs[(leg, "fused")]
+        for key, limit_ref, limit_fused in zip(("wer_pct", "wder_pct"), to_ref, fused_band):
+            want = ref["legs"][leg][key]
+            straddle = (leg == "vad" and abs(fz[key] - want) <= limit_fused
+                        and abs(u[key] - want) <= limit_fused)
+            if abs(fz[key] - u[key]) > limit_fused and not straddle:
+                problems.append(f"{leg}: fused {key} {fz[key]} is more than {limit_fused} "
+                                f"from unfused {u[key]}")
+            for name in runs_to_ref:
+                r = seeded_runs[(leg, name)]
+                if abs(r[key] - want) > limit_ref:
+                    problems.append(f"{leg}: {name} {key} {r[key]} is more than {limit_ref} "
+                                    f"from the JAX CPU reference's {want}")
+    if ref["words_changed_share"] < 0.02:
+        problems.append(f"the seeded LM changed {ref['words_changed_share']} of the words")
+    if problems:
+        fail("lm_fusion_1x: " + "; ".join(problems))
+    return runs
+
+
+def check_lm_kernels(torch, dev):
+    """K1 in f32 at the shapes of lm_fusion_1x's parity runs, which compute
+    in f32: the aligned leg's beam lanes (320, 270; S = 108, cap 38), the
+    state machine's lane (B = 1, S = 357, cache 512) and the VAD leg's 80
+    lanes at each bucket, first and last indices, each timed."""
+    f32 = torch.float32
+    recs = {}
+    # the aligned leg's record: timed at 320 lanes, the worst error of both
+    recs["aligned"] = worst_of([
+        check_layer_step(torch, dev, f"lm_fusion_1x:aligned,B={b},S={EVAL_S},L={EVAL_CAP}",
+                         b, 256, 4, EVAL_S, EVAL_CAP, f32, first)
+        for b in EVAL_LANES for first in (0, EVAL_CAP - 4)])
+    recs["aligned"].update(time_decode(torch, dev, "K1", "none", EVAL_LANES[0], 256, 4, EVAL_S,
+                                       EVAL_CAP, EVAL_CAP - 2, f32))
+    recs[("sm", 1)] = worst_of([
+        check_layer_step(torch, dev, f"lm_fusion_1x:sm,B=1,S={SM_S},L={SM_CAP}",
+                         1, 256, 4, SM_S, SM_CAP, f32, first)
+        for first in (0, SM_CAP // 2 - 2, SM_CAP - 3)])
+    recs[("sm", 1)].update(time_decode(torch, dev, "K1", "none", 1, 256, 4, SM_S, SM_CAP,
+                                       SM_CAP // 2 - 1, f32))
+    for secs, _, s, cap in VAD_SHAPES:
+        recs[("vad", secs)] = worst_of([
+            check_layer_step(torch, dev, f"lm_fusion_1x:vad,B={VAD_LANES},S={s},L={cap}",
+                             VAD_LANES, 256, 4, s, cap, f32, first) for first in (0, cap - 4)])
+        recs[("vad", secs)].update(time_decode(torch, dev, "K1", "none", VAD_LANES, 256, 4, s,
+                                               cap, cap - 2, f32))
+    return recs
+
+
+def lm_entries(runs, k1_f32, k1_eval, k2_eval, k1_long, k2_long):
+    """The LM path's kernels in each fused run of lm_fusion_1x: K2 at its N
+    and K1 at its shape and dtype (the parity runs f32, the others bf16),
+    with their launches in that run (the VAD leg's by bucket)."""
+    entries = []
+    for (leg, name), r in runs.items():
+        if name == "unfused":
+            continue
+        config = f"lm_fusion_1x:{leg}:{'seeded_f32' if name == 'fused' else name}"
+        k1 = k1_f32 if name == "fused" else {"aligned": k1_eval, **k1_long}
+        if leg == "aligned":
+            parts = [(config, k1["aligned"], k2_eval, r["launches"])]
+        elif leg == "sm":
+            parts = [(config, k1[("sm", 1)], k2_long["sm"], r["launches"])]
+        else:
+            parts = [(f"{config}:{secs}s", k1[("vad", secs)], k2_long[("vad", secs)], got)
+                     for secs, got in sorted(r["by_bucket"].items())]
+        for cfg, k1_rec, k2, got in parts:
+            entries.append(kernel_entry(cfg, k1_rec, got["fused_layer_step"],
+                                        k1_rec["max_abs_err"]["x_out"], "none"))
+            entries.append(kernel_entry(cfg, k2, got["fused_logmel_project"],
+                                        k2["max_abs_err"]))
+    return entries
+
+
 def train_cli_entries(t):
     """The training CLI's kernels, each with its launches in one run."""
     return [
@@ -2153,16 +2541,19 @@ def serving_phases(torch, dev, root, args, k1, k2, checks, timed):
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default="all",
-                    choices=("all", "kernels", "train", "eval", "unaligned", "train_cli"),
+                    choices=("all", "kernels", "train", "eval", "unaligned", "train_cli",
+                             "lm"),
                     help="'kernels' stops after the build and the kernel checks; "
                          "'train' skips the serving and eval phases; 'eval' runs "
                          "eval_aligned_1x after the kernel checks, nothing else; "
                          "'unaligned' runs eval_unaligned_1x after them; "
-                         "'train_cli' runs train_cli_1x after them")
+                         "'train_cli' runs train_cli_1x after them; 'lm' runs "
+                         "lm_fusion_1x after them")
     ap.add_argument("--profile", action="store_true",
                     help="also trace one fused greedy generate per model, each eval "
-                         "CLI run, one 2x training step and the training CLI's second "
-                         "run with torch.profiler and print where the time goes")
+                         "CLI run, one 2x training step, the training CLI's second "
+                         "run and each fused leg with the seeded LM with "
+                         "torch.profiler and print where the time goes")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -2300,16 +2691,16 @@ def main() -> None:
     if args.phases == "all":
         entries += serving_phases(torch, dev, root, args, k1, k2, checks, timed)[1]
 
+    # K1's record of the aligned leg's path: at 320 lanes (timed there), with
+    # the worst error of both lane counts
+    k1_rec = dict(k1_eval[EVAL_LANES[0]], max_abs_err={
+        k: max(k1_eval[b]["max_abs_err"][k] for b in EVAL_LANES)
+        for k in k1_eval[EVAL_LANES[0]]["max_abs_err"]})
     # ---- 5b. the aligned evaluation ------------------------------------------
     if args.phases in ("all", "eval"):
         ev = run_eval_aligned_1x(torch, dev, root, out_dir, card,
                                  {str(b): k1_eval[b]["plan"] for b in EVAL_LANES},
                                  trace=args.profile)
-        # K1's record at 320 lanes (timed there) with the worst error of both
-        # lane counts
-        k1_rec = dict(k1_eval[EVAL_LANES[0]], max_abs_err={
-            k: max(k1_eval[b]["max_abs_err"][k] for b in EVAL_LANES)
-            for k in k1_eval[EVAL_LANES[0]]["max_abs_err"]})
         entries += [
             kernel_entry("eval_aligned_1x:fused", k1_rec,
                          ev["fused"]["launches"]["fused_layer_step"],
@@ -2325,6 +2716,21 @@ def main() -> None:
         un = run_eval_unaligned_1x(torch, dev, root, out_dir, card, trace=args.profile)
         entries += unaligned_entries(un, k1_long, k2_long)
     if args.phases in ("eval", "unaligned"):
+        shutil.rmtree(out_dir, ignore_errors=True)
+        finish(torch, entries, card, t_start)
+        return
+    # ---- 8. LM shallow fusion ---------------------------------------------------
+    if args.phases in ("all", "lm"):
+        k1_lm = check_lm_kernels(torch, dev)
+        emit({"phase": "kernel_timing", "name": "fused_layer_step", "card": card,
+              "of": "lm_fusion_1x (f32)", "note": "ms = CUDA-graph replay, per launch",
+              **{str(key): {k: v[k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms",
+                                               "bound_by", "timed_shape", "plan")}
+                 for key, v in k1_lm.items() if "ms" in v}})
+        entries += lm_entries(run_lm_fusion_1x(torch, dev, root, out_dir, card,
+                                               trace=args.profile),
+                              k1_lm, k1_rec, k2_eval, k1_long, k2_long)
+    if args.phases == "lm":
         shutil.rmtree(out_dir, ignore_errors=True)
         finish(torch, entries, card, t_start)
         return

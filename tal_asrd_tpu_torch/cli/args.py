@@ -1,12 +1,13 @@
-"""The CLIs' argument parser and `build_configs`.
+"""The CLIs' argument parsers and `build_configs`.
 
 Counterpart of tal_asrd_tpu/cli/args.py (`get_argparser(is_train)`,
-`build_configs`): the same flags, so a reference invocation of `python -m
-tal_asrd_tpu.cli.test` or `.train` runs unchanged as `python -m
-tal_asrd_tpu_torch.cli.test` or `.train`, plus `--device`. LM fusion (--lm-path / --lm-weight, ROADMAP A14),
-the separate speaker head (--spk-weight > 0, A12.2) and a mesh of more than
-one device (--mesh-data / --mesh-model, A13) are not ported yet: the CLIs
-refuse them, naming the item.
+`get_lm_argparser`, `build_configs`): the same flags, so a reference
+invocation of `python -m tal_asrd_tpu.cli.test`, `.train` or `.train_lm`
+runs unchanged as `python -m tal_asrd_tpu_torch.cli.test`, `.train` or
+`.train_lm`, plus `--device`. The separate speaker head (--spk-weight
+> 0, ROADMAP A12.2) and a mesh of more than one device (--mesh-data /
+--mesh-model, A13) are not ported yet: the CLIs refuse them, naming the
+item.
 
 With the environment variable TAL_TINY_ARCH set, `build_configs` shrinks
 the model to the reference's debug architecture (TDS depths (1, 1, 1),
@@ -117,6 +118,33 @@ def get_argparser(is_train: bool = False) -> argparse.ArgumentParser:
         p.add_argument("--project", type=str, default="asr")
         p.add_argument("--checkpoint-path", type=str, default="./models/tal-asrd-tpu")
         p.add_argument("--overfit-pct", type=float, default=0)
+    return p
+
+
+def get_lm_argparser() -> argparse.ArgumentParser:
+    """The LM-training CLI's flags (cli/train_lm.py), plus --device. Its
+    defaults (hidden 768, 4 layers) are the reference's: the eval CLI loads
+    only the 512 / 4-head / 6-layer shape."""
+    p = argparse.ArgumentParser()
+    p.add_argument("--train-data", type=str, required=True)
+    p.add_argument("--valid-data", type=str, required=True)
+    p.add_argument("--epoch-len", type=int, default=5000)
+    p.add_argument("--cache-path", type=str, default="./cache")
+    p.add_argument("--tokenizer", type=str, required=True)
+    p.add_argument("--max-epochs", type=int, default=100)
+    p.add_argument("--max-steps", type=int, default=None)
+    p.add_argument("--batch-size", type=int, default=64)
+    p.add_argument("--hidden-size", type=int, default=768)
+    p.add_argument("--layers", type=int, default=4)
+    p.add_argument("--attn-heads", type=int, default=4)
+    p.add_argument("--max-len", type=int, default=512)
+    p.add_argument("--lr", type=float, default=1e-4)
+    p.add_argument("--name", type=str, required=True)
+    p.add_argument("--checkpoint-path", type=str, default="./models/tal-asrd-tpu")
+    p.add_argument("--load", type=str, default=None)
+    p.add_argument("--quick-test", action="store_true", default=False)
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device of the LM ('cpu' for a run without a GPU)")
     return p
 
 

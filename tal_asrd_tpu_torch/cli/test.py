@@ -3,7 +3,8 @@
     python -m tal_asrd_tpu_torch.cli.test --train-data D --valid-data D --test-data D \
         --tokenizer accuracy_release/bpe.model --model-type 1x --num-speakers 8 \
         --load accuracy_release/avg_last_3.bf16.msgpack --out-dir OUT [--fused-decode] \
-        [--unaligned [--vad-windows]] [--bf16-params] [--device cpu]
+        [--unaligned [--vad-windows]] [--bf16-params] [--lm-path LM --lm-weight W] \
+        [--device cpu]
 
 Counterpart of tal_asrd_tpu/cli/test.py: builds the system's model (f32
 parameters, bf16 compute; bf16 parameters under --bf16-params), loads the
@@ -19,9 +20,16 @@ test split through EvalRunner, everything on --device (default cuda):
   * --unaligned --vad-windows: each episode alone, through VAD-gated
     windows decoded by the aligned beam search.
 
+With --lm-path and --lm-weight > 0, every leg fuses the LM checkpoint (a
+flax msgpack tree, as cli/train_lm.py writes it) at that weight; the LM is
+built at LMConfig's shape (hidden 512, 4 heads, 6 layers, 512 positions)
+over the tokenizer's vocabulary and stays f32 under --bf16-params. With
+only one of the two flags the run decodes without an LM, as the
+reference's does.
+
 Writes OUT/test_result.pkl, hyp.txt and ref.txt and prints the mean test
-loss. --lm-path / --lm-weight (ROADMAP A14) and --spk-weight > 0 (A12.2) are
-not ported: they exit with a message.
+loss. --spk-weight > 0 (ROADMAP A12.2) is not ported: it exits with a
+message.
 """
 from __future__ import annotations
 
@@ -34,20 +42,20 @@ import torch
 
 from tal_asrd_tpu_torch.cli.args import build_configs, get_argparser
 from tal_asrd_tpu_torch.core.checkpoint import load_pytree
-from tal_asrd_tpu_torch.core.convert import params_to_state_dict
+from tal_asrd_tpu_torch.core.config import LMConfig
+from tal_asrd_tpu_torch.core.convert import load_into, params_to_state_dict
 from tal_asrd_tpu_torch.data.aligned import AlignedDataset
 from tal_asrd_tpu_torch.data.audio_io import load_audio_segment
 from tal_asrd_tpu_torch.data.collate import BucketedCollater
 from tal_asrd_tpu_torch.data.loader import DataLoader, ShardedSampler
 from tal_asrd_tpu_torch.eval.runner import EvalRunner
 from tal_asrd_tpu_torch.models.asr import ASRModel
+from tal_asrd_tpu_torch.models.lm import DecoderLMModel
 from tal_asrd_tpu_torch.text.bpe import BpeTokenizer
 from tal_asrd_tpu_torch.train.system import ASRSystem
 
 # Flags of paths that are not ported, with the ROADMAP item of each.
 UNPORTED = (
-    (lambda a: a.lm_path is not None or a.lm_weight != 0,
-     "--lm-path / --lm-weight: LM shallow fusion is ROADMAP A14"),
     (lambda a: a.spk_weight > 0, "--spk-weight > 0: the separate speaker head is ROADMAP A12.2"),
 )
 
@@ -112,8 +120,12 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         tokenizer_speakers=args.num_speakers > 0,
         return_spk_ids=True,
     )
+    lm = None
+    if args.lm_path and args.lm_weight > 0:
+        lm = load_into(DecoderLMModel(LMConfig(vocab_size=len(tokenizer)), device=args.device),
+                       load_pytree(args.lm_path))
     runner = EvalRunner(system.model, tokenizer, decode_cfg, out_dir=args.out_dir,
-                        device=args.device)
+                        device=args.device, lm=lm)
     steps = unaligned(args, ds, runner, data_dir) if args.unaligned else aligned(args, ds, runner)
     result = runner.test_end()
     print(result)

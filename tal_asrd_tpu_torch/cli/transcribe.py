@@ -40,7 +40,8 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch-size", type=int, default=15)
     p.add_argument("--beam-size", type=int, default=4)
     p.add_argument("--lm-weight", type=float, default=0.0,
-                   help="LM shallow fusion (ROADMAP A14): only 0")
+                   help="LM fusion weight; inert, as in the reference: this CLI "
+                        "loads no LM")
     p.add_argument("--length", type=int, default=120)
     p.add_argument("--truncate", type=float, default=-1.0)
     p.add_argument("--speech-only", action="store_true", default=False)
@@ -60,8 +61,6 @@ def get_parser() -> argparse.ArgumentParser:
 def main(argv: Optional[List[str]] = None) -> Dict[str, str]:
     """Transcribe; returns {wav path: transcript} for the files written."""
     args = get_parser().parse_args(argv)
-    if args.lm_weight != 0:
-        raise SystemExit("--lm-weight: LM shallow fusion is ROADMAP A14, not ported yet")
     tokenizer = BpeTokenizer(model_path=args.tokenizer)
     cfg = ModelConfig(model_type=args.model_type, num_speakers=args.num_speakers,
                       vocab_size=len(tokenizer))
@@ -72,7 +71,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, str]:
 
     tc = TranscribeConfig(
         window_seconds=args.window_secs, overlap=args.overlap, batch_size=args.batch_size,
-        beam_size=args.beam_size, max_new_tokens=args.length, use_eot=not args.use_eos,
+        beam_size=args.beam_size, lm_weight=args.lm_weight, max_new_tokens=args.length,
+        use_eot=not args.use_eos,
         speech_only=args.speech_only, splice=not args.no_splice)
     tr = Transcriber(model, tokenizer, tc, device=args.device,
                      decoder=FusedASRDecoder(model) if args.fused_decode else None)

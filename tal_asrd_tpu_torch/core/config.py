@@ -1,5 +1,5 @@
-"""Typed configuration for the frontend, the model, SpecAugment, training
-and decoding.
+"""Typed configuration for the frontend, the model, the shallow-fusion LM,
+SpecAugment, training and decoding.
 
 Own copy of the dataclasses the serving, training and evaluation paths read
 (counterpart: tal_asrd_tpu/core/config.py). Field names and defaults are the
@@ -111,6 +111,19 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class LMConfig:
+    """Decoder-only LM of shallow fusion: the shape the eval CLI loads
+    (vocab 10000, hidden 512, 4 heads, 6 layers, max_len 512) by default."""
+
+    vocab_size: int = 10000
+    hidden_size: int = 512
+    n_head: int = 4
+    n_layers: int = 6
+    max_positions: int = 512
+    dropout: float = 0.1
+
+
+@dataclass(frozen=True)
 class TrainConfig:
     """Training hyperparameters. `lr` is the base rate per sqrt(example):
     the optimizer runs at `scaled_lr`."""
@@ -143,14 +156,14 @@ class TrainConfig:
 
 @dataclass(frozen=True)
 class DecodeConfig:
-    """Decoding knobs, the reference's fields. LM fusion (ROADMAP A14) and
-    the non-causal reference mode (A11) are not ported yet: those fields are
-    accepted at their defaults only, and any other value raises
-    NotImplementedError naming the ROADMAP item."""
+    """Decoding knobs, the reference's fields. The non-causal reference
+    mode (ROADMAP A11) is not ported yet: `self_attn_mode` is accepted at
+    its default only, and any other value raises NotImplementedError naming
+    the item."""
 
     beam_size: int = 5
     max_length: int = 512
-    # LM shallow fusion weight (ROADMAP A14)
+    # LM shallow fusion weight (read only when an LM is given)
     lm_weight: float = 0.0
     # The unaligned sliding-window decoder's state machine (decode/unaligned.py)
     chunk_size: int = 357     # encoder frames per window (~28.5 s of audio)
@@ -181,6 +194,5 @@ class DecodeConfig:
 
 # Fields read only by paths not ported yet, and the ROADMAP item of each path.
 _UNPORTED_DECODE_FIELDS = {
-    "lm_weight": "A14 (LM shallow fusion)",
     "self_attn_mode": "A11 (the non-causal reference mode)",
 }

@@ -76,7 +76,8 @@ def _convert_leaf(path: Tuple[str, ...], value: Any) -> Tuple[str, torch.Tensor]
 
 def params_to_state_dict(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """Reference parameter tree (with or without a top-level 'params') ->
-    state_dict of the port's ASRModel and of its sub-modules."""
+    state_dict of the port's ASRModel, of its sub-modules, or of the
+    DecoderLMModel (models/lm.py: the same names, `layers_<i>` blocks)."""
     if set(tree.keys()) == {"params"}:
         tree = tree["params"]
     out: Dict[str, torch.Tensor] = {}
@@ -150,7 +151,8 @@ def _unconvert_entry(name: str, t: torch.Tensor) -> Tuple[Tuple[str, ...], torch
 
 
 def state_dict_to_params(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
-    """state_dict of the port's ASRModel (or any tensors keyed the same way)
+    """state_dict of the port's ASRModel or DecoderLMModel (or any tensors
+    keyed the same way)
     -> the reference's parameter tree (no top-level 'params') of numpy
     arrays; `params_to_state_dict` of the result gives the tensors back."""
     tree: Dict[str, Any] = {}

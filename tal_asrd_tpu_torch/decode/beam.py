@@ -16,6 +16,13 @@ the device; the host reads one flag per step (are all slots done?).
     retired row is stored into a fixed [B, K] finished pool;
   * length-normalized selection at the end (score / row length), considering
     the live rows too under `force_output`;
+  * LM shallow fusion when an LM is given and `lm_weight` > 0: the LM
+    (models/lm.py) steps beside the decoder over the prime and then once a
+    search step, its input the chosen token clamped to `text_vocab_size - 1`
+    (speaker tokens never reach it), and `lm_weight` times its f32
+    log-softmax is added to the first min(text_vocab_size, vocab_size)
+    columns of the decoder's log-probabilities; its caches are reordered
+    with the beams (at K > 1 only). An LM weight without an LM is inert;
   * with `collect_spk_embed`, the expected speaker embedding of each step
     (f32 softmax over the last `num_speakers` logits x the speaker rows of
     the tied embedding table, from the decoder's `speaker_rows()`, stored in
@@ -31,8 +38,8 @@ beams decides their slots. The reference's top-k (`lax.top_k`) puts the
 lower index first among equal values; `torch.topk` promises no order, so
 the selection is a stable descending sort (`top_k`).
 
-Not ported yet (raise NotImplementedError): LM shallow fusion (ROADMAP A14)
-and the speaker-head logits track `collect_spk` (A12.2).
+Not ported yet (raises NotImplementedError): the speaker-head logits track
+`collect_spk` (ROADMAP A12.2).
 """
 from __future__ import annotations
 
@@ -71,7 +78,8 @@ def beam_search(
 ) -> Dict[str, torch.Tensor]:
     """Run beam search. `model` is an ASRModel or a FusedASRDecoder (anything
     with `init_decode_state` and `decode_step`, and `speaker_rows` under
-    `collect_spk_embed`). Returns device tensors:
+    `collect_spk_embed`); `lm` a DecoderLMModel on the same device, or None.
+    Returns device tensors:
       tokens     [B, P + max_new]      best row per batch item
       lengths    [B]                   valid row length (incl. prime and EOS)
       scores     [B]                   length-normalized score of the chosen row
@@ -79,8 +87,6 @@ def beam_search(
       spk_embed  [B, max_new, E] bf16  expected speaker embedding per step
                                        (under collect_spk_embed)
     """
-    if lm is not None or spec.lm_weight > 0:
-        raise NotImplementedError("LM shallow fusion is not ported yet (ROADMAP A14)")
     if spec.collect_spk:
         raise NotImplementedError(
             "the speaker-head logits track (collect_spk) is not ported yet (ROADMAP A12.2)")
@@ -91,6 +97,7 @@ def beam_search(
     l_buf = p + spec.max_new_tokens
     device = prime.device
     prime = prime.to(torch.long)
+    use_lm = lm is not None and spec.lm_weight > 0
 
     # --- Expand encoder outputs across beams ---------------------------------
     mask = encoder_out.get("encoder_padding_mask")
@@ -110,10 +117,16 @@ def beam_search(
 
     # Prefill the caches on the prime prefix (small P; the last token feeds
     # the first search step).
-    logits = None
+    logits = lm_logits = lm_caches = None
+    if use_lm:
+        lm_caches = lm.init_cache(bk, l_buf)
     for i in range(p):
         cur_tok = prime[:, i:i + 1].repeat_interleave(k, dim=0)  # [BK, 1]
         logits, _, _, state = model.decode_step(cur_tok, state)
+        if use_lm:
+            lm_logits, lm_caches = lm.decode_step(
+                cur_tok.clamp(max=spec.text_vocab_size - 1), lm_caches, i)
+    lm_width = min(spec.text_vocab_size, v)
 
     # --- Search state --------------------------------------------------------
     # Beams 1..K-1 start at -inf so step 0 fans out from beam 0 only.
@@ -137,7 +150,10 @@ def beam_search(
 
     step = 0
     while step < spec.max_new_tokens and not bool(done.all()):
-        logprobs = torch.log_softmax(logits.to(torch.float32), dim=-1)  # [BK, V]
+        if use_lm:
+            logprobs = fuse_lm(logits, lm_logits, spec.lm_weight, lm_width)  # [BK, V]
+        else:
+            logprobs = torch.log_softmax(logits.to(torch.float32), dim=-1)
         total = logprobs + scores.reshape(-1, 1)
         total = torch.where(done[:, None], NEG_INF, total)
         scores, idx = top_k(total.reshape(b, k * v), k)                  # [B, K]
@@ -150,6 +166,8 @@ def beam_search(
             tokens = tokens.index_select(0, flat_beams)
             state = dict(state)
             state["caches"] = _gather(state["caches"], cache_axis, flat_beams)
+            if use_lm:
+                lm_caches = _gather(lm_caches, 0, flat_beams)
         tokens[:, p + step] = best_tok.reshape(-1)
         if spec.collect_spk_embed:
             probs = torch.softmax(logits[:, v - spec.num_speakers:].to(torch.float32), dim=-1)
@@ -176,7 +194,11 @@ def beam_search(
         # Next-step logits from the chosen tokens (not needed after the last
         # step: nothing reads them).
         if step < spec.max_new_tokens:
-            logits, _, _, state = model.decode_step(best_tok.reshape(-1, 1), state)
+            cur = best_tok.reshape(-1, 1)
+            logits, _, _, state = model.decode_step(cur, state)
+            if use_lm:
+                lm_logits, lm_caches = lm.decode_step(
+                    cur.clamp(max=spec.text_vocab_size - 1), lm_caches, p + step - 1)
 
     # --- Final selection -------------------------------------------------------
     if spec.force_output:
@@ -207,6 +229,16 @@ def beam_search(
     return out
 
 
+def fuse_lm(logits: torch.Tensor, lm_logits: torch.Tensor, weight: float,
+            width: int) -> torch.Tensor:
+    """Shallow fusion: the decoder's f32 log-softmax with `weight` times the
+    LM's f32 log-softmax added to its first `width` columns."""
+    logprobs = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    lm_logprobs = torch.log_softmax(lm_logits.to(torch.float32), dim=-1)
+    logprobs[..., :width] += weight * lm_logprobs[..., :width]
+    return logprobs
+
+
 def top_k(x: torch.Tensor, k: int):
     """The k largest values of each row and their indices, in descending
     order, the lower index first among equal values (as lax.top_k)."""
@@ -223,15 +255,16 @@ def _gather(tree, axis: int, index: torch.Tensor):
     return tree.index_select(axis, index)
 
 
-def make_generate_fn(model, spec: BeamSearchSpec, decoder=None,
-                     device: str = "cuda") -> Callable[..., Dict[str, torch.Tensor]]:
+def make_generate_fn(model, spec: BeamSearchSpec, decoder=None, device: str = "cuda",
+                     lm=None) -> Callable[..., Dict[str, torch.Tensor]]:
     """Build the serving entry point: generate(audio, audio_lens, prime) ->
     {tokens, lengths, scores, found} = model.encode + beam_search, under
     torch.inference_mode().
 
     `model` is the ASRModel (it encodes); `decoder` steps the search and
     defaults to the model itself — pass a FusedASRDecoder built on the same
-    model to decode through the fused layer-step kernel. Inputs may be numpy
+    model to decode through the fused layer-step kernel; `lm`, a
+    DecoderLMModel on `device`, fuses when spec.lm_weight > 0. Inputs may be numpy
     arrays or tensors on any device; they are moved to `device`, where the
     model must already live."""
     dec = model if decoder is None else decoder
@@ -243,6 +276,6 @@ def make_generate_fn(model, spec: BeamSearchSpec, decoder=None,
             lens_t = None if audio_lens is None else torch.as_tensor(audio_lens).to(dev)
             prime_t = torch.as_tensor(prime).to(dev)
             enc = model.encode(audio_t, lens_t)
-            return beam_search(dec, enc, prime_t, spec)
+            return beam_search(dec, enc, prime_t, spec, lm=lm)
 
     return generate

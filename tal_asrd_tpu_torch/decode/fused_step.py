@@ -120,7 +120,8 @@ class FusedASRDecoder:
         new_state), as ASRModel.decode_step. The caches inside `state` are
         written in place."""
         idx = state["index"]
-        x = self.model.embed_tokens(y_tok[:, 0]) + self._pe[idx]   # [B, D]
+        # a position past the table takes its last row (the reference's clamp)
+        x = self.model.embed_tokens(y_tok[:, 0]) + self._pe[min(idx, len(self._pe) - 1)]
         mem = state["mem_kvs"]
 
         # The pad bias [B, S] is carried in the state beside the mask it was

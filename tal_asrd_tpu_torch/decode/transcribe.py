@@ -65,7 +65,7 @@ class TranscribeConfig:
     overlap: float = 0.25            # fraction of a window overlapped
     batch_size: int = 16
     beam_size: int = 4
-    lm_weight: float = 0.0           # LM fusion is ROADMAP A14: only 0
+    lm_weight: float = 0.0           # inert: no LM is given here, as in the reference's CLI
     max_new_tokens: int = 120
     use_eot: bool = True             # prime with BOS, stop at EOT (else EOS)
     speech_only: bool = False        # VAD pre-gate

@@ -34,13 +34,21 @@ and budget is JAX's, including the buffers' quirks: the history slice of
 (`dynamic_slice` clamps its start), and the n-gram test reads the history
 before the token just emitted.
 
+LM shallow fusion (an LM given and `lm_weight` > 0): at every window event
+the LM (models/lm.py) prefills over the same history slice, speaker tokens
+clamped to `text_vocab_size - 1`, and its logits at the history's last
+token are kept; each token is the argmax of the decoder's f32 log-softmax
+plus `lm_weight` times the LM's over their common width; the LM then steps
+on that token at the decoder's cache index, in step with the decoder.
+
 `model` is an ASRModel or a FusedASRDecoder (anything with
 `precompute_mem_kvs`, `decode_prefill` and `decode_step`). The window's pad
 mask is a new tensor at every window event, so FusedASRDecoder rebuilds its
 pad bias there (the last window is the only one with padding).
 
 Batch: `unaligned_decode_batched` encodes nothing; it runs the single-lane
-machine on each lane of a batched encoder output in turn. The kernels take
+machine on each lane of a batched encoder output in turn (each lane with
+LM caches of its own). The kernels take
 one cache index per launch, and lanes of the machine stand at different
 indices, so lanes share no launch; each lane's result is its single-lane
 run, bit for bit, and each lane's kv8 scales are its own, as in JAX's
@@ -54,6 +62,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from tal_asrd_tpu_torch.decode.beam import fuse_lm
 from tal_asrd_tpu_torch.ops.ngram import RepeatCounter
 
 
@@ -72,7 +81,7 @@ class UnalignedSpec:
     max_outer: int = 4096         # window-reconfiguration budget
     history_evict_block: int = 64 # tokens evicted when history hits cap (1 = reference)
     warmup_window_steps: int = 5  # progress floor not raised in the first steps
-    # LM shallow fusion (ROADMAP A14): only 0 is accepted
+    # LM shallow fusion: read only when an LM is given
     lm_weight: float = 0.0
     text_vocab_size: Optional[int] = None
     # Extensions beyond the reference (both off = parity); see the module
@@ -92,7 +101,8 @@ def unaligned_decode(
     spec: UnalignedSpec,
     lm=None,
 ) -> Dict[str, Any]:
-    """Decode one episode. encoder_out['encoder_out']: [1, S_full, D].
+    """Decode one episode. encoder_out['encoder_out']: [1, S_full, D];
+    `lm` a DecoderLMModel on the same device, or None.
 
     Returns:
       tokens      [1, max_tokens] int32 (CPU; starts with the EOS prime)
@@ -104,8 +114,9 @@ def unaligned_decode(
                    eos_advances, terminations}: counts (a window is one
                    prefill; a reset that is both counts as a repeat)
     """
-    if lm is not None or spec.lm_weight > 0:
-        raise NotImplementedError("LM shallow fusion is not ported yet (ROADMAP A14)")
+    use_lm = lm is not None and spec.lm_weight > 0
+    if use_lm and spec.text_vocab_size is None:
+        raise ValueError("LM fusion needs spec.text_vocab_size")
     enc = encoder_out["encoder_out"]
     if enc.shape[0] != 1:
         raise ValueError(f"unaligned_decode takes one episode, got {enc.shape[0]}")
@@ -157,6 +168,10 @@ def unaligned_decode(
             at = min(max(valid - 1, 0), p_max - 1)
             last_logits = logits_all[0, at]
             last_attn = attn_all[0, at].to(torch.float32)
+            if use_lm:
+                lm_all, lm_caches = lm.decode_prefill(
+                    hist.clamp(max=spec.text_vocab_size - 1), p_max)
+                lm_last = lm_all[0, at]
             events["windows"] += 1
             is_last = (encoder_len - chunk_start) <= chunk
             state = {"mem_kvs": mem_kvs, "caches": caches, "index": valid, "mask": wmask}
@@ -171,7 +186,11 @@ def unaligned_decode(
             while token_loop_goes_on():
                 # one read: the argmax token (kept on the device too, as the
                 # next step's input) and the attention centroid
-                tok = last_logits.argmax()
+                if use_lm:
+                    tok = fuse_lm(last_logits, lm_last, spec.lm_weight,
+                                  min(last_logits.shape[-1], lm_last.shape[-1])).argmax()
+                else:
+                    tok = last_logits.argmax()
                 tok_f, prct = torch.stack([
                     tok.to(torch.float32), (last_attn * attn_range).sum()]).cpu().numpy()
                 next_tok = int(tok_f)
@@ -247,6 +266,11 @@ def unaligned_decode(
                         tok.view(1, 1), dict(state, index=cache_idx - 1))
                     last_logits = logits[0]
                     last_attn = attn_mean[0].to(torch.float32)
+                    if use_lm:
+                        lm_logits, lm_caches = lm.decode_step(
+                            tok.clamp(max=spec.text_vocab_size - 1).view(1, 1), lm_caches,
+                            cache_idx - 1)
+                        lm_last = lm_logits[0]
             outer += 1
 
     return {

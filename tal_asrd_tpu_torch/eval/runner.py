@@ -20,7 +20,10 @@ Counterpart of tal_asrd_tpu/eval/runner.py `EvalRunner`:
     test loss (0 for each unaligned episode, as the reference).
 
 `use_fused_decode` decodes through FusedASRDecoder (kernel K1 on the card)
-in every leg.
+in every leg. With an `lm` (a DecoderLMModel, models/lm.py) every leg
+fuses it at the DecodeConfig's `lm_weight` (the beam search and the state
+machine: decode/beam.py, decode/unaligned.py); the LM itself runs unfused
+beside the fused decoder. Without an LM the weight is not read.
 """
 from __future__ import annotations
 
@@ -49,11 +52,13 @@ SAMPLE_RATE = 16000
 class EvalRunner:
     def __init__(self, model: ASRModel, tokenizer,
                  decode_cfg: DecodeConfig = DecodeConfig(),
-                 out_dir: str = "out", device: str = "cuda"):
-        """`model` lives on `device` already; batches are moved there. The
-        reference's `spk_weight` (a separate speaker head, ROADMAP A12.2)
-        and LM fusion (A14) are not ported."""
+                 out_dir: str = "out", device: str = "cuda", lm=None):
+        """`model` (and `lm`, if given) live on `device` already; batches are
+        moved there. The reference's `spk_weight` (a separate speaker head,
+        ROADMAP A12.2) is not ported."""
         self.model = model.eval()
+        self.lm = lm
+        self.lm_weight = decode_cfg.lm_weight if lm is not None else 0.0
         self.tokenizer = tokenizer
         self.cfg = decode_cfg
         self.out_dir = out_dir
@@ -91,9 +96,10 @@ class EvalRunner:
             # speaker-token models: the expected speaker embedding per step,
             # for the embedding-clustering WDER chain
             collect_spk_embed=cfg.num_speakers > 0 and not cfg.use_speaker_head,
+            lm_weight=self.lm_weight,
         )
         run = make_generate_fn(self.model, spec, decoder=self._decode_model,
-                               device=str(self.device))
+                               device=str(self.device), lm=self.lm)
         self._generate[max_new] = run
         return run
 
@@ -161,6 +167,7 @@ class EvalRunner:
             history_evict_block=self.cfg.history_evict_block,
             eos_advance=self.cfg.eos_advance,
             stall_rollback=self.cfg.stall_rollback,
+            lm_weight=self.lm_weight,
             text_vocab_size=len(self.tokenizer),
         )
 
@@ -213,7 +220,7 @@ class EvalRunner:
         of one lane is the single-lane machine)."""
         enc, enc_lens = self._encode(audio[None], np.asarray([audio_len]))
         out = unaligned_decode_batched(self._decode_model, enc, enc_lens,
-                                       spec or self._default_unaligned_spec())
+                                       spec or self._default_unaligned_spec(), lm=self.lm)
         return self._finish_unaligned(out, 0, ref_utts)
 
     def test_step_unaligned_batched(self, audios: List[np.ndarray], audio_len: int,
@@ -229,7 +236,7 @@ class EvalRunner:
                              "group by length at the call site")
         enc, enc_lens = self._encode(np.stack(audios), np.full((len(audios),), audio_len))
         out = unaligned_decode_batched(self._decode_model, enc, enc_lens,
-                                       spec or self._default_unaligned_spec())
+                                       spec or self._default_unaligned_spec(), lm=self.lm)
         return [self._finish_unaligned(out, lane, ref_utts)
                 for lane, ref_utts in enumerate(ref_utts_list)]
 

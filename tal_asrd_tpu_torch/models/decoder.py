@@ -54,7 +54,9 @@ def sinusoidal_positions(max_len: int, d_model: int) -> np.ndarray:
 
 class PositionalEncoding(nn.Module):
     """Adds the sinusoidal table from row `offset` on. The table is a
-    non-persistent buffer: it follows `.to()` but is not a checkpoint key."""
+    non-persistent buffer: it follows `.to()` but is not a checkpoint key.
+    An offset past the table is clamped as the reference's `dynamic_slice`
+    clamps it: rows start at most at max_len - seq_len."""
 
     def __init__(self, d_model: int, max_len: int = 512, dropout: float = 0.1):
         super().__init__()
@@ -65,7 +67,8 @@ class PositionalEncoding(nn.Module):
 
     def forward(self, x: torch.Tensor, offset: int = 0) -> torch.Tensor:
         seq_len = x.shape[1]
-        x = x + self.pe[offset:offset + seq_len].to(x.dtype)[None]
+        start = min(max(offset, 0), self.pe.shape[0] - seq_len)
+        x = x + self.pe[start:start + seq_len].to(x.dtype)[None]
         return self.drop(x)
 
 

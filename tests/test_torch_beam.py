@@ -88,14 +88,19 @@ def test_beam_search_takes_encoder_out_directly(world):
 
 @pytest.mark.parametrize("field", ["lm_weight", "collect_spk", "collect_spk_embed"])
 def test_unported_beam_options_raise(world, field):
-    """LM fusion and the speaker-head track still raise. The speaker-embedding
-    track is ported (its parity with JAX: tests/test_torch_runner.py): it
-    runs when the spec names the model's speakers and refuses a spec that
-    does not."""
+    """The speaker-head track still raises. The speaker-embedding track is
+    ported (its parity with JAX: tests/test_torch_runner.py): it runs when
+    the spec names the model's speakers and refuses a spec that does not.
+    LM fusion is ported (tests/test_torch_lm_fusion.py): an LM weight
+    without an LM is inert, as in the reference, and gives JAX's tokens."""
     spec = world["spec"](BeamSearchSpec, 1, True, -1)
     setattr(spec, field, 0.5 if field == "lm_weight" else True)
     gen = make_generate_fn(world["tmodel"], spec, device="cpu")
     args = (world["audio"], world["lens"], world["prime"])
+    if field == "lm_weight":
+        out = gen(*args)
+        np.testing.assert_array_equal(out["tokens"].numpy(), world["refs"][(1, True, False)]["tokens"])
+        return
     if field != "collect_spk_embed":
         with pytest.raises(NotImplementedError):
             gen(*args)

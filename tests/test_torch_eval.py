@@ -145,9 +145,12 @@ def test_convert_and_score_test_result_match_jax(tmp_path):
     ("lm_weight", 0.5, "A14"), ("chunk_size", 340, "A9"), ("history_evict_block", 1, "A9"),
     ("eos_advance", True, "A9"), ("self_attn_mode", "noncausal_ref", "A11")])
 def test_decode_config_refuses_what_is_not_ported(field, value, item):
-    """LM fusion (A14) and the non-causal mode (A11) are refused; the state
-    machine's fields (A9, ported) are accepted at any value, each of them."""
-    if item == "A9":
+    """The non-causal mode (A11) is refused; LM fusion's weight (A14) and the
+    state machine's fields (A9), both ported, are accepted at any value, each
+    of them."""
+    if item == "A14":
+        assert DecodeConfig(lm_weight=value).lm_weight == value
+    elif item == "A9":
         assert getattr(DecodeConfig(**{field: value}), field) == value
         every = dict(chunk_size=100, thresh_prct=0.4, shift_prct=0.2, stall_patience=8,
                      rep_n=4, skip_prct=0.25, max_iters=500, history_evict_block=1,
@@ -169,17 +172,19 @@ CLI_BASE = ["--tokenizer", BPE, "--model-type", "1x", "--num-speakers", "8",
     (["--lm-weight", "0.3"], "A14"), (["--spk-weight", "0.5"], "A12.2"),
     (["--bf16-params"], "A8")])
 def test_cli_refuses_what_is_not_ported(flags, item, tmp_path):
-    """LM fusion (A14) and the speaker head (A12.2) exit with their item;
-    --unaligned (A9) and --bf16-params (once parked on A8) are ported: the
+    """The speaker head (A12.2) exits with its item; --unaligned (A9),
+    --bf16-params (once parked on A8) and LM fusion (A14) are ported: the
     CLI runs them on a split of one episode (--unaligned: 8 s, one padded
-    window of the state machine; --bf16-params: the aligned leg on the first
-    3 utterances of a 30 s episode, every parameter bf16) and writes its
-    outputs."""
+    window of the state machine; the others: the aligned leg on the first 3
+    utterances of a 30 s episode, under --bf16-params every parameter bf16)
+    and writes its outputs. --lm-path without --lm-weight, or --lm-weight
+    without --lm-path, decodes without an LM, as the reference's CLI does
+    (the path is not read; tests/test_torch_lm_fusion.py runs both flags)."""
     from tal_asrd_tpu_torch.cli.test import main
     d = str(tmp_path)
     argv = ["--train-data", d, "--valid-data", d, "--test-data", d, "--out-dir", d,
             "--device", "cpu"] + CLI_BASE + flags
-    if item not in ("A9", "A8"):
+    if item not in ("A9", "A8", "A14"):
         with pytest.raises(SystemExit) as exc:
             main(argv)
         assert item in str(exc.value.code)
@@ -187,7 +192,7 @@ def test_cli_refuses_what_is_not_ported(flags, item, tmp_path):
     from tal_asrd_tpu_torch.data.synth import build_synth_corpus
     transcripts = build_synth_corpus(d, n_episodes=1, n_speakers=8, seed=202,
                                      episode_seconds=8.0 if item == "A9" else 30.0)
-    if item == "A8":
+    if item in ("A8", "A14"):
         with open(os.path.join(d, "transcript.pkl"), "wb") as f:
             pickle.dump({"ep0": transcripts["ep0"][:3]}, f)
     n = torch.get_num_threads()
@@ -198,6 +203,7 @@ def test_cli_refuses_what_is_not_ported(flags, item, tmp_path):
         torch.set_num_threads(n)
     params = list(res["runner"].model.parameters())
     assert all(p.dtype == (torch.bfloat16 if item == "A8" else torch.float32) for p in params)
+    assert res["runner"].lm is None and res["runner"].lm_weight == 0.0
     if item == "A9":
         (step,) = res["steps"]
         assert step["idx"] == 0 and step["events"]["windows"] >= 1 and step["iters"] > 0

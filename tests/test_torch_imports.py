@@ -75,17 +75,26 @@ def test_the_training_cli_modules_are_among_the_checked_ones():
             "tal_asrd_tpu_torch.core.utils", "tal_asrd_tpu_torch.data.segment"} <= mods
 
 
+def test_the_lm_modules_are_among_the_checked_ones():
+    mods = set(_port_modules())
+    assert {"tal_asrd_tpu_torch.models.lm", "tal_asrd_tpu_torch.train.lm_system",
+            "tal_asrd_tpu_torch.cli.train_lm"} <= mods
+
+
 @pytest.mark.parametrize("target", ["ASRModel", "make_generate_fn", "ASRSystem",
                                     "EvalRunner", "cli.test", "Transcriber",
-                                    "cli.transcribe", "cli.vad", "cli.train"])
+                                    "cli.transcribe", "cli.vad", "cli.train",
+                                    "cli.train_lm", "DecoderLMModel", "LMSystem"])
 def test_entry_points_default_to_cuda(target):
     from tal_asrd_tpu_torch.cli import transcribe as cli_transcribe
     from tal_asrd_tpu_torch.cli import vad as cli_vad
-    from tal_asrd_tpu_torch.cli.args import get_argparser
+    from tal_asrd_tpu_torch.cli.args import get_argparser, get_lm_argparser
     from tal_asrd_tpu_torch.decode.beam import make_generate_fn
     from tal_asrd_tpu_torch.decode.transcribe import Transcriber
     from tal_asrd_tpu_torch.eval.runner import EvalRunner
     from tal_asrd_tpu_torch.models.asr import ASRModel
+    from tal_asrd_tpu_torch.models.lm import DecoderLMModel
+    from tal_asrd_tpu_torch.train.lm_system import LMSystem
     from tal_asrd_tpu_torch.train.system import ASRSystem
     parsers = {  # python -m tal_asrd_tpu_torch.cli.<name>: --device
         "cli.test": (get_argparser, ["--train-data", "d", "--valid-data", "d",
@@ -96,6 +105,8 @@ def test_entry_points_default_to_cuda(target):
         "cli.train": (lambda: get_argparser(is_train=True),
                       ["--train-data", "d", "--valid-data", "d", "--tokenizer", "t",
                        "--model-type", "1x", "--name", "n"]),
+        "cli.train_lm": (get_lm_argparser, ["--train-data", "d", "--valid-data", "d",
+                                            "--tokenizer", "t", "--name", "n"]),
     }
     if target in parsers:
         make, argv = parsers[target]
@@ -103,7 +114,8 @@ def test_entry_points_default_to_cuda(target):
         return
     fn = {"ASRModel": ASRModel.__init__, "make_generate_fn": make_generate_fn,
           "ASRSystem": ASRSystem.__init__, "EvalRunner": EvalRunner.__init__,
-          "Transcriber": Transcriber.__init__}[target]
+          "Transcriber": Transcriber.__init__, "DecoderLMModel": DecoderLMModel.__init__,
+          "LMSystem": LMSystem.__init__}[target]
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 

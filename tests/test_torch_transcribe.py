@@ -127,3 +127,31 @@ def test_transcribe_cli_with_the_tracked_checkpoint(tmp_path):
         assert main(argv) == {}          # the transcript exists: skipped
     finally:
         torch.set_num_threads(n)
+
+
+def test_transcribe_cli_lm_weight_is_inert(tmp_path):
+    """The reference's transcribe CLI takes --lm-weight and builds no LM, so
+    the weight changes nothing; the port's runs it so (it exited before LM
+    fusion was ported): the same transcript at --lm-weight 0.3 and 0, at
+    full width with the tracked checkpoint."""
+    import torch
+
+    from tal_asrd_tpu_torch.cli.transcribe import main
+    from tal_asrd_tpu_torch.data.audio_io import load_audio_segment, write_wav
+    from tal_asrd_tpu_torch.data.synth import build_synth_corpus
+    split, audio = str(tmp_path / "split"), str(tmp_path / "audio")
+    build_synth_corpus(split, n_episodes=1, episode_seconds=6.0, n_speakers=8, seed=202)
+    os.makedirs(audio)
+    wav = os.path.join(audio, "ep0.wav")
+    write_wav(wav, load_audio_segment(os.path.join(split, "ep0.wav"), 0.0, None))
+    argv = ["--audio", audio, "--tokenizer", BPE, "--model-type", "1x", "--num-speakers", "8",
+            "--load", os.path.join(ROOT, "accuracy_release", "avg_last_3.bf16.msgpack"),
+            "--window-secs", "5", "--beam-size", "2", "--length", "16", "--device", "cpu"]
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        texts = [main(argv + ["--out-dir", str(tmp_path / f"out{w}"), "--lm-weight", w])[wav]
+                 for w in ("0.3", "0")]
+    finally:
+        torch.set_num_threads(n)
+    assert texts[0] == texts[1] and texts[0].strip()
