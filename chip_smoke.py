@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases unaligned # ... + the long-form evaluation only
     python3 chip_smoke.py --phases train_cli # ... + the training CLI only
     python3 chip_smoke.py --phases lm        # ... + LM shallow fusion only
+    python3 chip_smoke.py --phases spk       # ... + the separate speaker head only
 
 Builds the port's CUDA kernels from tal_asrd_tpu_torch/csrc/ with nvcc, holds
 each against its plain PyTorch version on the card at the shapes its paths
@@ -63,6 +64,17 @@ fused, in f32 as that JAX CPU reference, held against its figures; then the
 three legs fused with the trained LM and without an LM, in bf16 as users
 run them. K1 is checked in f32 at the parity runs' shapes.
 
+Then the separate speaker head (`spk_head_1x`, `--phases spk`): the
+tracked checkpoint's text weights with a head seeded by
+scripts/torch_spk_reference.py's `seeded_spk_tree` (rebuilt with numpy)
+through the eval CLI at --spk-weight 0.5 — aligned in f32 against the JAX
+CLI's f32 tokens and speakerLogits (tests/fixtures/torch_spk_reference.json),
+in bf16 unfused and with --fused-decode (a head model decodes through the
+model itself: K1 is launched no time), each against the same tree without
+the head; both long-form legs — then the training CLI for 2 epochs against
+the JAX CLI's validation losses, one resumed epoch with SpecAugment (K4),
+and the eval CLI on the last checkpoint.
+
 Then it runs the training CLI (`train_cli_1x`): `python -m
 tal_asrd_tpu_torch.cli.train`'s `main` at scripts/accuracy.sh's last
 phase's flags (B = 16, --max-secs 28.5, --shiftaug --cache-items
@@ -78,8 +90,8 @@ K4 at [16, 3001, 80], both on int16 audio.
 
 Prints one JSON object per line: `device`, one `kernel` line per check,
 `k3_vs_k1_chain`, `k1_determinism`, `k3_determinism`, `kernel_timing`, one `serve_*` line per configuration,
-`eval_aligned_1x`, `prefill_handoff`, `eval_unaligned_1x`, `lm_fusion_1x`, `train_2x`,
-`train_1x_checkpoint`, `train_cli_1x`, `kernels` (every kernel of each path with
+`eval_aligned_1x`, `prefill_handoff`, `eval_unaligned_1x`, `lm_fusion_1x`, `spk_head_1x`,
+`train_2x`, `train_1x_checkpoint`, `train_cli_1x`, `kernels` (every kernel of each path with
 its launch count in that path's one timed run, its error against the plain
 version, its time, the plain version's, a library call's where one exists,
 and the least time the card could take), and last
@@ -92,6 +104,7 @@ Imports torch and the port only — nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import json
 import os
@@ -2067,12 +2080,13 @@ LM_TRAIN_FLAGS = ["--hidden-size", "512", "--layers", "6", "--attn-heads", "4",
 LM_LEGS = {"aligned": [], "sm": ["--unaligned"], "vad": ["--unaligned", "--vad-windows"]}
 
 
-def lm_reference_script(root):
-    """scripts/torch_lm_reference.py, for `seeded_lm_params` and the
-    fixture's constants (it needs numpy alone)."""
+def reference_script(root, name):
+    """scripts/<name>.py (torch_lm_reference: `seeded_lm_params`;
+    torch_spk_reference: `seeded_spk_tree`), for its seeded trees and
+    constants (it needs numpy alone)."""
     import importlib.util
     spec = importlib.util.spec_from_file_location(
-        "torch_lm_reference", os.path.join(root, "scripts", "torch_lm_reference.py"))
+        name, os.path.join(root, "scripts", f"{name}.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -2184,7 +2198,7 @@ def run_lm_fusion_1x(torch, dev, root, out_dir, card, trace=False):
     from tal_asrd_tpu_torch.ops.cuda_kernels import fused_logmel_project
     from tal_asrd_tpu_torch.train.lm_system import LMSystem
 
-    ref_script = lm_reference_script(root)
+    ref_script = reference_script(root, "torch_lm_reference")
     with open(os.path.join(root, LM_FIXTURE)) as f:
         ref = json.load(f)["seeded_eval"]
     base = os.path.join(out_dir, "lm_fusion")
@@ -2423,6 +2437,453 @@ def lm_entries(runs, k1_f32, k1_eval, k2_eval, k1_long, k2_long):
     return entries
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the separate speaker head (spk_head_1x)
+# ---------------------------------------------------------------------------
+# No tracked checkpoint has the head. The phase rebuilds, with numpy alone,
+# the tree of scripts/torch_spk_reference.py's fixture: the tracked
+# checkpoint's text weights (the speaker rows moved to text slots that no
+# reference uses) and a head seeded at ReZero scalars 0.4. A head model
+# decodes through the model itself (the fused decoder covers the
+# speaker-token mode only, as the reference's runner routes it), so K1 is
+# launched no time on its legs; K2 runs in every encode and K4 in training.
+SPK_FIXTURE = os.path.join("tests", "fixtures", "torch_spk_reference.json")
+SPK_ARRAYS = os.path.join("tests", "fixtures", "torch_spk_reference_arrays.npz")
+SPK_HEAD_LEAVES = ("spk_enc_proj", "spk_decoder", "speaker_head_1", "speaker_head_2")
+SPK_RESUME_STEPS = 15                 # one epoch: 246 items // 16
+# The compared training run (f32, no dropout, no token replacement) follows
+# the JAX CLI's to within 1e-4 for its first 6 steps; from the 7th its text
+# loss parts with the arithmetic's order: two runs of this phase on the card
+# part from each other by up to 2.7 % a step, as they part from JAX (PERF.md,
+# PR 11), while the speaker loss stays within 0.3 % of JAX's. So the first 6
+# steps are held to 0.1 %, each validation's speaker loss to 1 % and its
+# loss and text loss to 10 %.
+SPK_EXACT_STEPS, SPK_STEP_BAND, SPK_VAL_BAND, SPK_TEXT_BAND = 6, 0.001, 0.01, 0.10
+
+
+def bf16_steps_apart(a, b):
+    """How many bfloat16 numbers apart two arrays of bfloat16 values are."""
+    def ordered(x):
+        bits = (np.ascontiguousarray(x, np.float32).view(np.uint32) >> 16).astype(np.int64)
+        return np.where(bits >= 0x8000, 0x8000 - bits, bits)
+    return np.abs(ordered(a) - ordered(b))
+
+
+def speaker_logits_of(path):
+    """Each segment's list of speakerLogits arrays from a test_result.pkl
+    (None for an entry without one)."""
+    import pickle
+    with open(path, "rb") as f:
+        return [[u.get("speakerLogits") for u in hyp] for _, hyp in pickle.load(f)]
+
+
+def run_spk_head_1x(torch, dev, root, out_dir, card, trace=False):
+    """The speaker head on the card. (1) The seeded tree (SPK_FIXTURE's
+    `tree`, rebuilt with numpy) through the eval CLI's aligned leg at
+    --spk-weight 0.5 on the test split: in f32 against the JAX CLI's f32
+    run (every segment's tokens equal, every speakerLogits value within one
+    bf16 step); in bf16, unfused and with --fused-decode (WER within 1.0 of
+    the JAX CLI's bf16 run, speakerLogits argmax equal on at least 90 % of
+    the rows of the segments whose tokens equal JAX's, the two runs'
+    tokens equal, K1 launched no time, K2 four times a run); in f32 and
+    bf16 the tokens equal those of the same tree without the head at
+    --num-speakers 0. (2) --unaligned and --unaligned --vad-windows in bf16:
+    tokens equal the headless tree's, no speakerLogits. (3) The training CLI
+    at the fixture's seeded_train flags, 2 epochs, in f32 without dropout
+    and token replacement as the fixture's JAX run (their random streams
+    differ between the packages, and in bf16 the JAX CLI's CPU reductions
+    saturate, ROADMAP C18): the first SPK_EXACT_STEPS steps' losses and each
+    validation within the bands above, spk_loss falling; one resumed epoch
+    as users run it, in bf16 with SpecAugment (K4 once a step) and dropout;
+    the last checkpoint read back leaf for leaf; the eval CLI on it writes
+    speakerLogits of width 8. With `trace`, the bf16 aligned run is repeated
+    once under torch.profiler. Returns the runs' launches and the kernel
+    records."""
+    from tal_asrd_tpu_torch.cli import test as cli_test
+    from tal_asrd_tpu_torch.cli import train as cli_train
+    from tal_asrd_tpu_torch.core.checkpoint import load_pytree, save_pytree, tree_leaves
+    from tal_asrd_tpu_torch.core.config import FrontendConfig
+    from tal_asrd_tpu_torch.data.collate import BucketedCollater
+    from tal_asrd_tpu_torch.data.synth import build_synth_corpus
+    from tal_asrd_tpu_torch.eval.convert import score_test_result
+    from tal_asrd_tpu_torch.ops.cuda_decode import fused_layer_step
+    from tal_asrd_tpu_torch.ops.cuda_kernels import fused_logmel_project
+    from tal_asrd_tpu_torch.ops.logmel import log_mel_spectrogram
+    from tal_asrd_tpu_torch.ops.specaug import spec_augment
+    from tal_asrd_tpu_torch.train.loop import Trainer
+    from tal_asrd_tpu_torch.train.system import ASRSystem
+
+    ref_script = reference_script(root, "torch_spk_reference")
+    with open(os.path.join(root, SPK_FIXTURE)) as f:
+        ref = json.load(f)
+    ref_arrays = np.load(os.path.join(root, SPK_ARRAYS))
+    base = os.path.join(out_dir, "spk_head")
+    split = os.path.join(base, "test")
+    bpe = os.path.join(root, "accuracy_release", "bpe.model")
+    tracked = os.path.join(root, "accuracy_release", "avg_last_3.bf16.msgpack")
+    t0 = time.perf_counter()
+    build_synth_corpus(split, **EVAL_SPLIT)
+    t = ref["tree"]
+    tree = ref_script.seeded_spk_tree(
+        load_pytree(tracked), t["n_text"], t["seed"], t["scalars"],
+        enc_channels=t["enc_channels"], d=t["d"], ff=t["ff"], layers=t["layers"],
+        spk_embed=t["spk_embed"], speakers=t["speakers"], speaker_slots=t["speaker_slots"],
+        memory_gain=t["memory_gain"])
+    trees = {"head": os.path.join(base, "seeded_spk.msgpack"),
+             "headless": os.path.join(base, "seeded_headless.msgpack")}
+    save_pytree(trees["head"], tree)
+    save_pytree(trees["headless"], {k: v for k, v in tree.items() if k not in SPK_HEAD_LEAVES})
+    setup_seconds = time.perf_counter() - t0
+    counters = {"fused_layer_step": fused_layer_step,
+                "fused_logmel_project": fused_logmel_project}
+    spk = str(ref["spk_weight"])
+
+    def cli_argv(leg, name, head, fused=False, load=None, data=split):
+        return (["--train-data", data, "--valid-data", data, "--test-data", data,
+                 "--tokenizer", bpe, "--model-type", "1x",
+                 "--num-speakers", "8" if head else "0"]
+                + (["--spk-weight", spk] if head else [])
+                + ["--load", load or trees["head" if head else "headless"],
+                   "--out-dir", os.path.join(base, f"{leg}_{name}"), "--device", dev]
+                + LM_LEGS[leg] + (["--fused-decode"] if fused else []))
+
+    def leg_run(leg, name, head, fused=False, compute_dtype=None):
+        argv = cli_argv(leg, name, head, fused)
+        res, secs, r = run_eval_counted(torch, argv, counters, compute_dtype)
+        out = os.path.join(base, f"{leg}_{name}")
+        scored = score_test_result(os.path.join(out, "test_result.pkl"))
+        if leg == "aligned":
+            r["tokens"] = [s["tokens"][i, :s["lengths"][i]].tolist()
+                           for s in res["steps"] for i in range(len(s["idx"]))]
+        elif leg == "sm":
+            r["tokens"] = [s["tokens"] for s in res["steps"]]
+        else:
+            r["tokens"] = [s["window_tokens"] for s in res["steps"]]
+        r.update(wer_pct=100.0 * scored["overall_wer"], wder_pct=100.0 * scored["overall_wder"],
+                 n_words=int(sum(scored["n_words"])), seconds=secs,
+                 speaker_logits=speaker_logits_of(os.path.join(out, "test_result.pkl")))
+        if trace and leg == "aligned" and name == "bf16_unfused":
+            profile_call(torch, "spk_head_1x:aligned:bf16_unfused", cli_test.main, (argv,))
+        del res
+        torch.cuda.empty_cache()
+        return r
+
+    # ---- (1), (2): the eval CLI -------------------------------------------------
+    leg_run("aligned", "warmup", True)                     # not counted
+    f32 = torch.float32
+    runs = {"f32_head": leg_run("aligned", "f32_head", True, compute_dtype=f32),
+            "f32_headless": leg_run("aligned", "f32_headless", False, compute_dtype=f32),
+            "bf16_unfused": leg_run("aligned", "bf16_unfused", True),
+            "bf16_fused": leg_run("aligned", "bf16_fused", True, fused=True),
+            "bf16_headless": leg_run("aligned", "bf16_headless", False)}
+    for leg in ("sm", "vad"):
+        leg_run(leg, "warmup", True)      # not counted: this leg's encoder shapes
+        runs[f"{leg}_head"] = leg_run(leg, "head", True)
+        runs[f"{leg}_headless"] = leg_run(leg, "headless", False)
+
+    ref_runs = ref["seeded_eval"]["runs"]
+    problems = []
+
+    def jax_logits(run, seg):
+        n = len(ref_runs[run]["speaker_logits_shapes"][seg])
+        return [ref_script.from_bf16_bits(ref_arrays[f"seeded_eval/{run}/{seg:03d}/{u}"])
+                for u in range(n)]
+
+    # (a) f32 parity
+    a = runs["f32_head"]
+    n_seg = len(ref_runs["f32"]["segment_tokens"])
+    f32_equal = sum(x == y for x, y in zip(a["tokens"], ref_runs["f32"]["segment_tokens"]))
+    worst_steps = 0
+    if f32_equal != n_seg or len(a["tokens"]) != n_seg or len(a["speaker_logits"]) != n_seg:
+        problems.append(f"f32: {f32_equal} of {n_seg} segments' tokens equal the JAX CLI's "
+                        f"({len(a['tokens'])} segments)")
+    else:
+        for seg, ours in enumerate(a["speaker_logits"]):
+            theirs = jax_logits("f32", seg)
+            if len(ours) != len(theirs) or any(
+                    o is None or o.shape != th.shape for o, th in zip(ours, theirs)):
+                problems.append(f"f32: segment {seg}'s speakerLogits are not JAX's in number "
+                                f"or shape")
+                break
+            for o, th in zip(ours, theirs):
+                worst_steps = max(worst_steps, int(bf16_steps_apart(o, th).max(initial=0)))
+    if worst_steps > 1:
+        problems.append(f"f32: speakerLogits {worst_steps} bf16 steps from JAX's (> 1)")
+    # (b) bf16 as users run it
+    b16 = runs["bf16_unfused"]
+    agree = rows = 0
+    bf16_equal = 0
+    for seg, (ours, toks, want) in enumerate(zip(b16["speaker_logits"], b16["tokens"],
+                                                 ref_runs["bf16"]["segment_tokens"])):
+        if toks != want:
+            continue
+        bf16_equal += 1
+        for o, th in zip(ours, jax_logits("bf16", seg)):
+            agree += int((o.argmax(-1) == th.argmax(-1)).sum())
+            rows += o.shape[0]
+    argmax_share = agree / max(rows, 1)
+    if abs(b16["wer_pct"] - ref_runs["bf16"]["wer_pct"]) > 1.0:
+        problems.append(f"bf16: WER {b16['wer_pct']} is more than 1.0 from the JAX CLI's "
+                        f"{ref_runs['bf16']['wer_pct']}")
+    if argmax_share < 0.9 or rows == 0:
+        problems.append(f"bf16: speakerLogits argmax equal on {agree} of {rows} rows (< 90 %)")
+    if runs["bf16_fused"]["tokens"] != b16["tokens"]:
+        problems.append("bf16: --fused-decode changed the tokens of a speaker-head model")
+    for name in ("f32_head", "bf16_unfused", "bf16_fused", "sm_head", "vad_head"):
+        got = runs[name]["launches"]
+        if got["fused_layer_step"] != 0 or runs[name]["decode_steps"] != 0:
+            problems.append(f"{name}: K1 launched {got['fused_layer_step']} times "
+                            f"({runs[name]['decode_steps']} fused steps) on a speaker-head leg")
+        if name.startswith(("f32", "bf16")) and got["fused_logmel_project"] != 4:
+            problems.append(f"{name}: K2 launched {got['fused_logmel_project']} times, "
+                            f"expected 4")
+        if got["fused_logmel_project"] <= 0:
+            problems.append(f"{name}: K2 never launched")
+    # (c) invariance, and (2) the long-form legs
+    for head, headless in (("f32_head", "f32_headless"), ("bf16_unfused", "bf16_headless"),
+                           ("sm_head", "sm_headless"), ("vad_head", "vad_headless")):
+        if runs[head]["tokens"] != runs[headless]["tokens"]:
+            problems.append(f"{head}: tokens differ from the headless tree's ({headless})")
+    for name in ("sm_head", "vad_head"):
+        if any(x is not None for seg in runs[name]["speaker_logits"] for x in seg):
+            problems.append(f"{name}: a long-form leg wrote speakerLogits")
+    if any(x is None or x.shape[1] != 8 for seg in b16["speaker_logits"] for x in seg):
+        problems.append("bf16: an utterance without speakerLogits of width 8")
+
+    # ---- (3) the training CLI ---------------------------------------------------
+    tr = ref["seeded_train"]
+    dirs = {k: os.path.join(base, "train_" + k.lower()) for k in ("TRAIN", "VALID", "CKPTS",
+                                                                  "OUT")}
+    for name, s in tr["splits"].items():
+        build_synth_corpus(dirs[name.upper()], **s)
+    fill = dict(dirs, TREE=trees["head"])
+    argv1 = [fill.get(x, x) for x in tr["argv"]] + ["--device", dev]
+    run_name = argv1[argv1.index("--name") + 1]
+    run_dir = os.path.join(dirs["CKPTS"], run_name)
+    n1 = tr["checkpoints"][-1]
+    last1 = os.path.join(run_dir, n1)
+    steps1 = int(n1[5:13])
+    argv2 = [x for x in argv1 if x != "--no-specaug"]
+    argv2[argv2.index("--load") + 1] = last1
+    argv2 += ["--max-steps", str(steps1 + SPK_RESUME_STEPS), "--max-epochs", "1000"]
+    tcounters = {"fused_logmel_project": fused_logmel_project, "spec_augment": spec_augment}
+    shapes = set()
+    collate = BucketedCollater.__call__
+
+    def recording(self, samples):
+        out = collate(self, samples)
+        shapes.add(tuple(out["audio"].shape))
+        return out
+
+    vals = []
+    validate, eval_step = Trainer._validate, ASRSystem.eval_step
+
+    def recording_validate(self, val_loader, step, n_batches=None):
+        vals.append({"step": step, "batches": []})
+        return validate(self, val_loader, step, n_batches)
+
+    def recording_eval_step(self, batch):
+        m = eval_step(self, batch)
+        vals[-1]["batches"].append({k: float(m[k]) for k in ("loss", "lm_loss", "spk_loss")})
+        return m
+
+    def no_noise(build):
+        # the fixture's JAX run trains in f32 without dropout and token
+        # replacement (each package draws them from its own random stream;
+        # in bf16 the JAX CLI's CPU reductions saturate, ROADMAP C18)
+        def build_configs(args, tokenizer=None):
+            model_cfg, train_cfg, decode_cfg = build(args, tokenizer)
+            return (dataclasses.replace(model_cfg, dropout=0.0, tds_dropout=0.0),
+                    dataclasses.replace(train_cfg, token_replace_prob=0.0), decode_cfg)
+        return build_configs
+
+    trainer_config, build_configs = cli_train.TrainerConfig, cli_train.build_configs
+    system_of = cli_train.ASRSystem
+    BucketedCollater.__call__ = recording
+    Trainer._validate, ASRSystem.eval_step = recording_validate, recording_eval_step
+    cli_train.TrainerConfig = functools.partial(trainer_config, log_every=1)
+    metrics = os.path.join(dirs["OUT"], f"{run_name}.metrics.jsonl")
+    train_runs = {}
+    try:
+        for name, argv in (("run1", argv1), ("run2", argv2)):
+            cli_train.build_configs = no_noise(build_configs) if name == "run1" else build_configs
+            cli_train.ASRSystem = (functools.partial(system_of, compute_dtype=torch.float32)
+                                   if name == "run1" else system_of)
+            seen = os.path.getsize(metrics) if os.path.exists(metrics) else 0
+            vals.clear()
+            torch.cuda.reset_peak_memory_stats()
+            # The main path's run: counts set to 0 just before it, read just after.
+            for fn in tcounters.values():
+                fn.launches = 0
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = cli_train.main(argv)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t1
+            with open(metrics) as f:
+                f.seek(seen)
+                recs = [json.loads(line) for line in f if line.strip()]
+            steps = [r for r in recs if "loss" in r]
+            epochs = [r for r in recs if "epoch_time_s" in r]
+            train_runs[name] = {
+                "seconds": secs, "steps": len(steps), "final_step": out["system"].step,
+                "step_time_ms_median": 1e3 * float(np.median(
+                    [r["step_time_s"] for r in steps[1:]])),
+                "audio_seconds_per_second": sum(r["audio_s"] for r in epochs)
+                / sum(r["train_s"] for r in epochs),
+                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "losses_finite": bool(all(np.isfinite(r["loss"]) for r in steps)),
+                "step_losses": [[r["step"], r["loss"], r["lm_loss"], r["spk_loss"]]
+                                for r in steps],
+                "validations": [dict({k: float(np.mean([b[k] for b in v["batches"]]))
+                                      for k in ("loss", "lm_loss", "spk_loss")},
+                                     step=v["step"]) for v in vals],
+                "launches": {k: fn.launches for k, fn in tcounters.items()}}
+            if name == "run2":
+                last = os.path.join(run_dir, f"ckpt_{out['system'].step:08d}.msgpack")
+                written = dict(tree_leaves(load_pytree(last)))
+                held = dict(tree_leaves(out["system"].params_tree()))
+                round_trip = sorted(written) == sorted(held) and all(
+                    np.asarray(written[k]).dtype == np.asarray(held[k]).dtype
+                    and np.asarray(written[k]).tobytes() == np.asarray(held[k]).tobytes()
+                    for k in held)
+                head_leaves = sum(k[0] in SPK_HEAD_LEAVES for k in held)
+            del out
+            torch.cuda.empty_cache()
+    finally:
+        BucketedCollater.__call__ = collate
+        Trainer._validate, ASRSystem.eval_step = validate, eval_step
+        cli_train.TrainerConfig, cli_train.build_configs = trainer_config, build_configs
+        cli_train.ASRSystem = system_of
+    # the trained checkpoint through the eval CLI
+    for fn in counters.values():
+        fn.launches = 0
+    t1 = time.perf_counter()
+    cli_test.main(cli_argv("aligned", "trained", True, load=last))
+    torch.cuda.synchronize()
+    trained_eval = {"seconds": time.perf_counter() - t1,
+                    "launches": {k: fn.launches for k, fn in counters.items()}}
+    trained_logits = speaker_logits_of(os.path.join(base, "aligned_trained", "test_result.pkl"))
+    trained_eval.update(score_test_result(os.path.join(base, "aligned_trained",
+                                                       "test_result.pkl")))
+    trained_eval = {k: trained_eval[k] for k in ("seconds", "launches", "overall_wer",
+                                                 "overall_wder")}
+
+    r1, r2 = train_runs["run1"], train_runs["run2"]
+    want_vals = tr["validations"]
+    if [v["step"] for v in r1["validations"]] != [v["step"] for v in want_vals]:
+        problems.append(f"train: validations at {[v['step'] for v in r1['validations']]}, "
+                        f"the JAX CLI's at {[v['step'] for v in want_vals]}")
+    rel = lambda a, b: abs(a - b) / abs(b)
+    first_steps_err = max(rel(g, w) for got, want in zip(r1["step_losses"][:SPK_EXACT_STEPS],
+                                                         tr["step_losses"][:SPK_EXACT_STEPS])
+                          for g, w in zip(got[1:], want[1:]))
+    if [s[0] for s in r1["step_losses"][:SPK_EXACT_STEPS]] != list(range(1, SPK_EXACT_STEPS + 1)) \
+            or first_steps_err > SPK_STEP_BAND:
+        problems.append(f"train: the first {SPK_EXACT_STEPS} steps' losses are "
+                        f"{first_steps_err:.3g} from the JAX CLI's (> {SPK_STEP_BAND})")
+    for got, want in zip(r1["validations"], want_vals):
+        for k, band in (("loss", SPK_TEXT_BAND), ("lm_loss", SPK_TEXT_BAND),
+                        ("spk_loss", SPK_VAL_BAND)):
+            if rel(got[k], want[k]) > band:
+                problems.append(f"train: step {got['step']} {k} {got[k]} is more than "
+                                f"{band:.0%} from the JAX CLI's {want[k]}")
+    if not r1["validations"][-1]["spk_loss"] < r1["validations"][0]["spk_loss"]:
+        problems.append(f"train: spk_loss did not fall: {r1['validations']}")
+    if not (r1["losses_finite"] and r2["losses_finite"]):
+        problems.append("train: a loss is not finite")
+    k2_launched = min(r["launches"]["fused_logmel_project"] for r in (r1, r2))
+    if (r1["launches"]["spec_augment"] != 0 or r2["launches"]["spec_augment"] != r2["steps"]
+            or r2["steps"] != SPK_RESUME_STEPS or k2_launched <= 0):
+        problems.append(f"train: launches {r1['launches']} / {r2['launches']} after "
+                        f"{r1['steps']} / {r2['steps']} steps")
+    if not round_trip or head_leaves == 0:
+        problems.append(f"train: the last checkpoint does not read back leaf for leaf "
+                        f"({head_leaves} head leaves)")
+    if trained_eval["launches"]["fused_layer_step"] != 0 or not trained_logits or any(
+            x is None or x.shape[1] != 8 for seg in trained_logits for x in seg):
+        problems.append(f"trained eval: launches {trained_eval['launches']}, speakerLogits "
+                        f"not of width 8 throughout")
+
+    # ---- K2 at the training shapes and K4 at [16, 3001, 80], on int16 audio ------
+    rng = np.random.default_rng(SEED + 9)
+    k2_recs = {}
+    for b, n in sorted(shapes | {(1, n) for _, n in shapes}):
+        audio = torch.from_numpy(int16_speech(rng, b, n)).to(dev)
+        k2_recs[(b, n)] = check_logmel(torch, dev, b, n, audio=audio)
+    audio = torch.from_numpy(int16_speech(rng, 16, 480_000)).to(dev)
+    spec = log_mel_spectrogram(audio, FrontendConfig(),
+                               audio_lens=torch.full((16,), 480_000, device=dev))
+    k4 = check_specaug(torch, dev, 16, spec_in=spec.contiguous())
+    k2_train = k2_recs.get((16, 480_000)) or k2_recs[max(k2_recs)]
+
+    keep = ("wer_pct", "wder_pct", "n_words", "seconds", "launches", "decode_steps")
+    rec = {"phase": "spk_head_1x", "card": card, "setup_seconds": setup_seconds,
+           "tree": ref["tree"], "eval": {k: {f: r[f] for f in keep} for k, r in runs.items()},
+           "reference_jax_cpu": {k: {f: ref_runs[k][f] for f in ("wer_pct", "wder_pct")}
+                                 for k in ref_runs},
+           "f32_segments_equal": f32_equal, "f32_speaker_logits_max_bf16_steps": worst_steps,
+           "bf16_segments_equal_to_jax": bf16_equal, "bf16_argmax_rows": [agree, rows],
+           "bf16_argmax_share": argmax_share,
+           "seconds_per_run": {"aligned": [runs["bf16_unfused"]["seconds"],
+                                           runs["bf16_headless"]["seconds"]],
+                               "sm": [runs["sm_head"]["seconds"],
+                                      runs["sm_headless"]["seconds"]],
+                               "vad": [runs["vad_head"]["seconds"],
+                                       runs["vad_headless"]["seconds"]],
+                               "note": "[with the head, without]"},
+           "train": {"run1": r1, "run2": r2, "reference_validations": want_vals,
+                     "first_steps_max_rel_err": first_steps_err,
+                     "validations_rel_err": [{k: rel(g[k], w[k]) for k in (
+                         "loss", "lm_loss", "spk_loss")} for g, w in zip(r1["validations"],
+                                                                        want_vals)],
+                     "checkpoint_round_trip_equal": round_trip, "head_leaves": head_leaves,
+                     "eval_of_last": trained_eval},
+           "k2_shapes": {f"{b}x{n}": {k: r[k] for k in ("max_abs_err", "ms", "bound_ms",
+                                                        "plain_ms", "library_ms")}
+                         for (b, n), r in k2_recs.items()},
+           "k4": {k: k4[k] for k in ("shape", "checks", "ms", "graph_ms", "bound_ms",
+                                     "plain_ms", "where_ms")}}
+    emit(rec)
+    if problems:
+        fail("spk_head_1x: " + "; ".join(problems))
+    return {"runs": runs, "train": train_runs, "trained_eval": trained_eval,
+            "k2_train": dict(k2_train, max_abs_err=max(r["max_abs_err"]
+                                                       for r in k2_recs.values())),
+            "k4": k4}
+
+
+def spk_entries(s, k2_eval, k2_long):
+    """The speaker-head path's kernels, each with its launches in one run:
+    K2 in the aligned runs (N = 64064 / 54054), the state machine's
+    (72004) and the VAD windows' (by bucket), K2 and K4 in training. K1 is
+    launched no time on this path (run_spk_head_1x gates the zero)."""
+    entries = []
+    for name in ("f32_head", "bf16_unfused", "bf16_fused"):
+        entries.append(kernel_entry(f"spk_head_1x:aligned:{name}", k2_eval,
+                                    s["runs"][name]["launches"]["fused_logmel_project"],
+                                    k2_eval["max_abs_err"]))
+    entries.append(kernel_entry("spk_head_1x:sm", k2_long["sm"],
+                                s["runs"]["sm_head"]["launches"]["fused_logmel_project"],
+                                k2_long["sm"]["max_abs_err"]))
+    for secs, got in sorted(s["runs"]["vad_head"]["by_bucket"].items()):
+        rec = k2_long[("vad", secs)]
+        entries.append(kernel_entry(f"spk_head_1x:vad:{secs}s", rec,
+                                    got["fused_logmel_project"], rec["max_abs_err"]))
+    t, k2 = s["train"], s["k2_train"]
+    entries += [
+        kernel_entry("spk_head_1x:train_run1", k2, t["run1"]["launches"]["fused_logmel_project"],
+                     k2["max_abs_err"]),
+        kernel_entry("spk_head_1x:train_run2", k2, t["run2"]["launches"]["fused_logmel_project"],
+                     k2["max_abs_err"]),
+        kernel_entry("spk_head_1x:train_run2", s["k4"], t["run2"]["launches"]["spec_augment"],
+                     s["k4"]["max_abs_err"]),
+        kernel_entry("spk_head_1x:eval_trained", k2_eval,
+                     s["trained_eval"]["launches"]["fused_logmel_project"],
+                     k2_eval["max_abs_err"])]
+    return entries
+
+
 def train_cli_entries(t):
     """The training CLI's kernels, each with its launches in one run."""
     return [
@@ -2542,18 +3003,19 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default="all",
                     choices=("all", "kernels", "train", "eval", "unaligned", "train_cli",
-                             "lm"),
+                             "lm", "spk"),
                     help="'kernels' stops after the build and the kernel checks; "
                          "'train' skips the serving and eval phases; 'eval' runs "
                          "eval_aligned_1x after the kernel checks, nothing else; "
                          "'unaligned' runs eval_unaligned_1x after them; "
                          "'train_cli' runs train_cli_1x after them; 'lm' runs "
-                         "lm_fusion_1x after them")
+                         "lm_fusion_1x after them; 'spk' runs spk_head_1x after them")
     ap.add_argument("--profile", action="store_true",
                     help="also trace one fused greedy generate per model, each eval "
                          "CLI run, one 2x training step, the training CLI's second "
-                         "run and each fused leg with the seeded LM with "
-                         "torch.profiler and print where the time goes")
+                         "run, each fused leg with the seeded LM and the speaker "
+                         "head's bf16 aligned run with torch.profiler and print "
+                         "where the time goes")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -2731,6 +3193,14 @@ def main() -> None:
                                                trace=args.profile),
                               k1_lm, k1_rec, k2_eval, k1_long, k2_long)
     if args.phases == "lm":
+        shutil.rmtree(out_dir, ignore_errors=True)
+        finish(torch, entries, card, t_start)
+        return
+    # ---- 9. the separate speaker head --------------------------------------------
+    if args.phases in ("all", "spk"):
+        entries += spk_entries(run_spk_head_1x(torch, dev, root, out_dir, card,
+                                               trace=args.profile), k2_eval, k2_long)
+    if args.phases == "spk":
         shutil.rmtree(out_dir, ignore_errors=True)
         finish(torch, entries, card, t_start)
         return

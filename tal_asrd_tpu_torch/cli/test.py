@@ -27,9 +27,14 @@ over the tokenizer's vocabulary and stays f32 under --bf16-params. With
 only one of the two flags the run decodes without an LM, as the
 reference's does.
 
+With --spk-weight > 0 the model carries the separate speaker head and no
+speaker tokens (the test split is tokenized without them): the aligned
+leg writes each utterance's rows of the head's logits as `speakerLogits`,
+and decodes through the model itself even under --fused-decode (the fused
+decoder covers the speaker-token mode only), as the reference's does.
+
 Writes OUT/test_result.pkl, hyp.txt and ref.txt and prints the mean test
-loss. --spk-weight > 0 (ROADMAP A12.2) is not ported: it exits with a
-message.
+loss.
 """
 from __future__ import annotations
 
@@ -53,11 +58,6 @@ from tal_asrd_tpu_torch.models.asr import ASRModel
 from tal_asrd_tpu_torch.models.lm import DecoderLMModel
 from tal_asrd_tpu_torch.text.bpe import BpeTokenizer
 from tal_asrd_tpu_torch.train.system import ASRSystem
-
-# Flags of paths that are not ported, with the ROADMAP item of each.
-UNPORTED = (
-    (lambda a: a.spk_weight > 0, "--spk-weight > 0: the separate speaker head is ROADMAP A12.2"),
-)
 
 
 def load_weights(model: ASRModel, path: str, strict: bool = True) -> None:
@@ -91,9 +91,6 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     (aligned: per batch, with its dataset indices; unaligned: per episode,
     with its dataset index)."""
     args = get_argparser().parse_args(argv)
-    for refused, message in UNPORTED:
-        if refused(args):
-            sys.exit(f"tal_asrd_tpu_torch.cli.test: {message}, not ported yet")
     if not args.test_data:
         sys.exit("--test-data required")
     if not args.load:
@@ -117,7 +114,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         min_segment_duration=None if args.unaligned else 3,
         max_segment_duration=None if args.unaligned else args.max_secs,
         speaker_map_loc=os.path.join(data_dir, "speaker_map.json"),
-        tokenizer_speakers=args.num_speakers > 0,
+        tokenizer_speakers=args.num_speakers > 0 and args.spk_weight == 0,
         return_spk_ids=True,
     )
     lm = None
@@ -125,7 +122,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         lm = load_into(DecoderLMModel(LMConfig(vocab_size=len(tokenizer)), device=args.device),
                        load_pytree(args.lm_path))
     runner = EvalRunner(system.model, tokenizer, decode_cfg, out_dir=args.out_dir,
-                        device=args.device, lm=lm)
+                        device=args.device, lm=lm, spk_weight=args.spk_weight)
     steps = unaligned(args, ds, runner, data_dir) if args.unaligned else aligned(args, ds, runner)
     result = runner.test_end()
     print(result)

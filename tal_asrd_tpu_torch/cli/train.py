@@ -18,8 +18,10 @@ validation.
 Randomness follows the reference: `set_seed(42)` seeds Python's and numpy's
 generators, from which the sampler's shuffle and the segment windows are
 drawn (with --num-workers 0 in the reference's order), and gives the CPU
-generator of the initial weights. --spk-weight > 0 (ROADMAP A12.2) and a
-mesh of more than one device (A13) are refused.
+generator of the initial weights. --spk-weight > 0 trains the separate
+speaker head beside the decoder (its loss weighted by the flag; the data
+then carries no speaker tokens). A mesh of more than one device (A13) is
+refused.
 """
 from __future__ import annotations
 
@@ -50,7 +52,6 @@ from tal_asrd_tpu_torch.utils.logging import MetricsLogger
 
 # Flags of paths that are not ported, with the ROADMAP item of each.
 UNPORTED = (
-    (lambda a: a.spk_weight > 0, "--spk-weight > 0: the separate speaker head is ROADMAP A12.2"),
     (lambda a: a.mesh_data not in (-1, 1) or a.mesh_model != 1,
      "--mesh-data / --mesh-model: a mesh of more than one device (data or tensor "
      "parallel) is ROADMAP A13"),

@@ -30,16 +30,20 @@ the device; the host reads one flag per step (are all slots done?).
     at retirement and returned as `spk_embed` for the chosen row. As in the
     reference, a step's row is written in the order of the beams BEFORE the
     reorder: new row r gets the expectation of old row r, not of the beam it
-    continues.
+    continues;
+  * with `collect_spk` (a model with the separate speaker head), the
+    speaker head's logits of each step in bf16, a track [B*K, max_new, S]
+    reordered with the beams and written, like the embedding track, with
+    the previous decode step's logits in the beams' order before the
+    reorder; copied into the finished pool at retirement (and for the live
+    rows under `force_output`) and returned as `spk` for the chosen row. The
+    speaker head's caches (`spk_caches`) are reordered with the decoder's.
 
 Equal scores are common: logits come in bf16, two tokens of one beam with
 the same bf16 logit get the same f32 score, and the order of the chosen
 beams decides their slots. The reference's top-k (`lax.top_k`) puts the
 lower index first among equal values; `torch.topk` promises no order, so
 the selection is a stable descending sort (`top_k`).
-
-Not ported yet (raises NotImplementedError): the speaker-head logits track
-`collect_spk` (ROADMAP A12.2).
 """
 from __future__ import annotations
 
@@ -84,12 +88,11 @@ def beam_search(
       lengths    [B]                   valid row length (incl. prime and EOS)
       scores     [B]                   length-normalized score of the chosen row
       found      [B]                   whether any beam terminated
+      spk        [B, max_new, S] bf16  speaker-head logits per step
+                                       (under collect_spk)
       spk_embed  [B, max_new, E] bf16  expected speaker embedding per step
                                        (under collect_spk_embed)
     """
-    if spec.collect_spk:
-        raise NotImplementedError(
-            "the speaker-head logits track (collect_spk) is not ported yet (ROADMAP A12.2)")
     b, p = prime.shape
     k = spec.beam_size
     v = spec.vocab_size
@@ -101,9 +104,10 @@ def beam_search(
 
     # --- Expand encoder outputs across beams ---------------------------------
     mask = encoder_out.get("encoder_padding_mask")
+    spk_out = encoder_out.get("speaker_out")
     enc = {
         "encoder_out": encoder_out["encoder_out"].repeat_interleave(k, dim=0),
-        "speaker_out": None,
+        "speaker_out": None if spk_out is None else spk_out.repeat_interleave(k, dim=0),
         "encoder_padding_mask": (
             None if mask is None else mask.repeat_interleave(k, dim=0)),
     }
@@ -117,12 +121,12 @@ def beam_search(
 
     # Prefill the caches on the prime prefix (small P; the last token feeds
     # the first search step).
-    logits = lm_logits = lm_caches = None
+    logits = spk_logits = lm_logits = lm_caches = None
     if use_lm:
         lm_caches = lm.init_cache(bk, l_buf)
     for i in range(p):
         cur_tok = prime[:, i:i + 1].repeat_interleave(k, dim=0)  # [BK, 1]
-        logits, _, _, state = model.decode_step(cur_tok, state)
+        logits, spk_logits, _, state = model.decode_step(cur_tok, state)
         if use_lm:
             lm_logits, lm_caches = lm.decode_step(
                 cur_tok.clamp(max=spec.text_vocab_size - 1), lm_caches, i)
@@ -138,6 +142,15 @@ def beam_search(
     fin_len = torch.zeros((b, k), dtype=torch.long, device=device)
     fin_valid = torch.zeros((b, k), dtype=torch.bool, device=device)
     batch_offset = (torch.arange(b, device=device) * k)[:, None]  # [B, 1]
+    if spec.collect_spk:
+        if spk_logits is None or spk_logits.shape[-1] != spec.num_speakers:
+            raise ValueError(f"collect_spk: spec.num_speakers={spec.num_speakers}, but the "
+                             f"decoder's speaker head gives "
+                             f"{None if spk_logits is None else spk_logits.shape[-1]}")
+        spk_track = torch.zeros((bk, spec.max_new_tokens, spec.num_speakers),
+                                dtype=torch.bfloat16, device=device)
+        fin_spk = torch.zeros((b, k) + spk_track.shape[1:], dtype=torch.bfloat16,
+                              device=device)
     if spec.collect_spk_embed:
         spk_rows = model.speaker_rows().to(device=device, dtype=torch.float32)  # [S, E]
         if spk_rows.shape[0] != spec.num_speakers or spec.num_speakers < 1:
@@ -166,9 +179,15 @@ def beam_search(
             tokens = tokens.index_select(0, flat_beams)
             state = dict(state)
             state["caches"] = _gather(state["caches"], cache_axis, flat_beams)
+            if "spk_caches" in state:
+                state["spk_caches"] = _gather(state["spk_caches"], 0, flat_beams)
             if use_lm:
                 lm_caches = _gather(lm_caches, 0, flat_beams)
         tokens[:, p + step] = best_tok.reshape(-1)
+        if spec.collect_spk:
+            if k > 1:
+                spk_track = spk_track.index_select(0, flat_beams)
+            spk_track[:, step] = spk_logits.to(torch.bfloat16)
         if spec.collect_spk_embed:
             probs = torch.softmax(logits[:, v - spec.num_speakers:].to(torch.float32), dim=-1)
             if k > 1:
@@ -185,6 +204,9 @@ def beam_search(
         fin_norm = torch.where(newly_bk, scores / float(row_len), fin_norm)
         fin_len = torch.where(newly_bk, row_len, fin_len)
         fin_valid = fin_valid | newly_bk
+        if spec.collect_spk:
+            fin_spk = torch.where(newly_bk[..., None, None],
+                                  spk_track.reshape(fin_spk.shape), fin_spk)
         if spec.collect_spk_embed:
             fin_emb = torch.where(newly_bk[..., None, None],
                                   emb_track.reshape(fin_emb.shape), fin_emb)
@@ -195,7 +217,7 @@ def beam_search(
         # step: nothing reads them).
         if step < spec.max_new_tokens:
             cur = best_tok.reshape(-1, 1)
-            logits, _, _, state = model.decode_step(cur, state)
+            logits, spk_logits, _, state = model.decode_step(cur, state)
             if use_lm:
                 lm_logits, lm_caches = lm.decode_step(
                     cur.clamp(max=spec.text_vocab_size - 1), lm_caches, p + step - 1)
@@ -210,6 +232,9 @@ def beam_search(
         fin_tokens = torch.where(take_live[..., None],
                                  tokens.reshape(b, k, -1), fin_tokens)
         fin_len = torch.where(take_live, p + step, fin_len)
+        if spec.collect_spk:
+            fin_spk = torch.where(take_live[..., None, None],
+                                  spk_track.reshape(fin_spk.shape), fin_spk)
         if spec.collect_spk_embed:
             fin_emb = torch.where(take_live[..., None, None],
                                   emb_track.reshape(fin_emb.shape), fin_emb)
@@ -224,6 +249,8 @@ def beam_search(
         "scores": fin_norm[rows, best],
         "found": fin_valid.any(dim=1),
     }
+    if spec.collect_spk:
+        out["spk"] = fin_spk[rows, best]
     if spec.collect_spk_embed:
         out["spk_embed"] = fin_emb[rows, best]
     return out

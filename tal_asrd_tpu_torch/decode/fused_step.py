@@ -24,6 +24,11 @@ the tied factorized output head stay plain PyTorch. Prefill goes through the
 model's full-sequence path (it is large-matmul-bound) and its caches are
 viewed in the kernel layout ([B, L, H*dh], stacked under `stacked`).
 
+The fused decoder covers the speaker-token mode only: a model with the
+separate speaker head (a second decoder stack) is refused, as the
+reference's assert refuses it, and its decode loops run the model itself
+(eval/runner.py routes them so).
+
 Layer weights are packed (and quantized under w8) once, at construction,
 per layer or stacked: the decoder holds its own [in, out] copies and, in
 bf16 and int8, the same weights in the kernels' tensor-core order (`tc_*`,
@@ -54,6 +59,10 @@ class FusedASRDecoder:
 
     def __init__(self, model: ASRModel, kv8: bool = False, w8: bool = False,
                  stacked: bool = False):
+        if model.cfg.use_speaker_head:
+            raise ValueError(
+                "the fused decoder covers the speaker-token mode; a model with the "
+                "separate speaker head decodes through the model itself")
         self.model = model
         self.cfg = model.cfg
         self.dtype = model.compute_dtype

@@ -7,7 +7,10 @@ Counterpart of tal_asrd_tpu/eval/runner.py `EvalRunner`:
     expected-speaker-embedding track for speaker-token models;
     `decode_speakers` splits each chosen row into utterances with their
     speaker ids, and each utterance gets the track's row at its speaker
-    token as `speakerEmbed`;
+    token as `speakerEmbed`; a model with the separate speaker head keeps
+    the head's logits track instead, and each utterance gets its rows
+    `spk[last : split + 1]` as `speakerLogits` (consecutive utterances share
+    the row at their boundary, as in the reference);
   * whole episodes through the sliding-window state machine
     (decode/unaligned.py), one episode or a group of equal-length episodes
     encoded together; each utterance carries its `attention`, `chunkStart`
@@ -20,10 +23,16 @@ Counterpart of tal_asrd_tpu/eval/runner.py `EvalRunner`:
     test loss (0 for each unaligned episode, as the reference).
 
 `use_fused_decode` decodes through FusedASRDecoder (kernel K1 on the card)
-in every leg. With an `lm` (a DecoderLMModel, models/lm.py) every leg
-fuses it at the DecodeConfig's `lm_weight` (the beam search and the state
-machine: decode/beam.py, decode/unaligned.py); the LM itself runs unfused
-beside the fused decoder. Without an LM the weight is not read.
+in every leg, except for a model with the separate speaker head: that one
+decodes through the model itself (its second decoder has no fused form), as
+the reference's runner routes it. The state machine builds its decode state
+by hand without the head's caches, so there a speaker-head model decodes
+without its head; the VAD windows' beam search keeps the track and writes
+no `speakerLogits`, as the reference's. With an `lm` (a DecoderLMModel,
+models/lm.py) every leg fuses it at the DecodeConfig's `lm_weight` (the
+beam search and the state machine: decode/beam.py, decode/unaligned.py);
+the LM itself runs unfused beside the fused decoder. Without an LM the
+weight is not read.
 """
 from __future__ import annotations
 
@@ -52,18 +61,22 @@ SAMPLE_RATE = 16000
 class EvalRunner:
     def __init__(self, model: ASRModel, tokenizer,
                  decode_cfg: DecodeConfig = DecodeConfig(),
-                 out_dir: str = "out", device: str = "cuda", lm=None):
+                 out_dir: str = "out", device: str = "cuda", lm=None,
+                 spk_weight: float = 0.0):
         """`model` (and `lm`, if given) live on `device` already; batches are
-        moved there. The reference's `spk_weight` (a separate speaker head,
-        ROADMAP A12.2) is not ported."""
+        moved there. `spk_weight` > 0 (a model with the separate speaker
+        head, trained with the speaker loss) leaves the unknown-speaker
+        tokens of the teacher-forced loss unclamped, as the reference."""
         self.model = model.eval()
+        self.spk_weight = spk_weight
         self.lm = lm
         self.lm_weight = decode_cfg.lm_weight if lm is not None else 0.0
         self.tokenizer = tokenizer
         self.cfg = decode_cfg
         self.out_dir = out_dir
         self.device = torch.device(device)
-        self._decode_model = FusedASRDecoder(model) if decode_cfg.use_fused_decode else model
+        self._decode_model = (FusedASRDecoder(model) if decode_cfg.use_fused_decode
+                              and not model.cfg.use_speaker_head else model)
         self.test_outputs: List = []
         self._losses: List[float] = []
         self._generate = {}
@@ -75,7 +88,8 @@ class EvalRunner:
     def _teacher_forced_loss(self, batch: Dict[str, torch.Tensor]) -> float:
         cfg = self.model.cfg
         y = batch["text"].long()
-        if cfg.num_speakers > 0:   # unknown-speaker tokens -> the last speaker id
+        if cfg.num_speakers > 0 and self.spk_weight == 0:
+            # unknown-speaker tokens -> the last speaker id
             y = torch.clamp(y, max=cfg.vocab_size + cfg.num_speakers - 1)
         with torch.inference_mode():
             (logits, _), _ = self.model(batch["audio"], y[:, :-1], batch["audio_lens"])
@@ -92,6 +106,7 @@ class EvalRunner:
             eos_id=self.tokenizer.eos_token_id,
             vocab_size=cfg.num_tokens,
             text_vocab_size=len(self.tokenizer),
+            collect_spk=cfg.use_speaker_head,
             num_speakers=cfg.num_speakers,
             # speaker-token models: the expected speaker embedding per step,
             # for the embedding-clustering WDER chain
@@ -120,6 +135,7 @@ class EvalRunner:
         tokens = out["tokens"].cpu().numpy()
         lengths = out["lengths"].cpu().numpy()
         found = out["found"].cpu().numpy()
+        spk = out["spk"].float().cpu().numpy() if "spk" in out else None
         emb = out["spk_embed"].float().cpu().numpy() if "spk_embed" in out else None
         text_vocab = self.model.cfg.vocab_size
 
@@ -129,6 +145,12 @@ class EvalRunner:
                 hyp = list(tokens[i, : lengths[i] - 1])  # drop the final EOS
                 utts, splits = self.tokenizer.decode_speakers(hyp)
                 entries = [{"utterance": text, "speakerId": sid} for text, sid in utts]
+                if spk is not None:
+                    # each utterance's rows of the speaker-logit track
+                    last = 0
+                    for e, s in zip(entries, splits):
+                        e["speakerLogits"] = spk[i, last:s + 1]
+                        last = s
                 if emb is not None:
                     # Expected speaker embedding at each utterance's speaker
                     # token: hyp[j] was emitted at beam step j-1 (index 0 is

@@ -3,7 +3,11 @@
 Counterpart of tal_asrd_tpu/models/asr.py: log-mel frontend -> TDS conv
 encoder (8x time reduction) -> linear projection to decoder width -> ReZero
 transformer decoder with cross-attention, factorized tied token embeddings
-(embed_size 64), vocabulary = text BPE + appended speaker tokens.
+(embed_size 64), vocabulary = text BPE + appended speaker tokens, or, with
+`use_speaker_head`, text BPE alone and a separate speaker head: a second
+encoder projection (`spk_enc_proj`) feeding a half-depth decoder
+(`spk_decoder`, the same token embedding and positions) and a two-layer
+projection (`speaker_head_1`, `speaker_head_2`) to per-token speaker logits.
 
   * decode() returns (logits, per-layer cross-attention weights);
   * init_decode_state()/decode_step() provide KV-cached single-token decoding
@@ -19,10 +23,9 @@ transformer decoder with cross-attention, factorized tied token embeddings
   * construction leaves the model in eval mode, as serving wants it;
     `.train()` turns on every dropout, and `extract_features(train=True)`
     applies SpecAugment (ops/specaug.py, kernel K4 on the card) to the f32
-    log-mel before the cast.
-
-Not ported yet: the separate speaker head (`use_speaker_head=True` raises
-NotImplementedError; `decode_spk` comes with it).
+    log-mel before the cast;
+  * the speaker head's modules are registered after the main decoder, so a
+    model without the head draws the same initial weights either way.
 """
 from __future__ import annotations
 
@@ -79,10 +82,6 @@ class ASRModel(nn.Module):
         if None), then moved to `device` in `dtype`; the forward computes in
         `compute_dtype` (`dtype` if None)."""
         super().__init__()
-        if cfg.use_speaker_head:
-            raise NotImplementedError(
-                "the separate speaker head is not ported yet; use the "
-                "speaker-token mode (use_speaker_head=False)")
         self.cfg = cfg
         self.frontend = frontend
         self.specaug = specaug
@@ -111,6 +110,14 @@ class ASRModel(nn.Module):
             n_layers=c.n_decoder_layers, d_model=d, n_head=c.n_head,
             dim_feedforward=4 * d, dropout=c.dropout,
         )
+        if c.use_speaker_head:
+            self.spk_enc_proj = Linear(c.tds_channels[-1], d)
+            self.spk_decoder = RZDecoder(
+                n_layers=c.n_decoder_layers // 2, d_model=d, n_head=c.n_head,
+                dim_feedforward=4 * d, dropout=c.dropout,
+            )
+            self.speaker_head_1 = Linear(d, c.spk_embed)
+            self.speaker_head_2 = Linear(c.spk_embed, c.num_speakers)
         self.reset_parameters(generator)
         self.to(device=device, dtype=dtype)
         self.eval()
@@ -164,8 +171,10 @@ class ASRModel(nn.Module):
         self, feats: torch.Tensor, audio_lens: Optional[torch.Tensor] = None,
         max_audio_len: Optional[int] = None,
     ) -> Dict[str, Any]:
-        """Log-mel -> encoder memory dict."""
+        """Log-mel -> encoder memory dict (`speaker_out`: the speaker head's
+        memory, None without the head)."""
         h = self.encoder(feats)  # [B, S, C_enc]
+        spk_h = self.spk_enc_proj(h) if self.cfg.use_speaker_head else None
         x = self.decoder_proj(h)
         mask = None
         if audio_lens is not None:
@@ -173,7 +182,7 @@ class ASRModel(nn.Module):
                 raise ValueError("audio_lens given without max_audio_len")
             mask = encoder_padding_mask(audio_lens, max_audio_len, x.shape[1],
                                         mode=self.cfg.pad_mask_mode)
-        return {"encoder_out": x, "speaker_out": None,
+        return {"encoder_out": x, "speaker_out": spk_h,
                 "encoder_padding_mask": mask}
 
     def encode(self, audio: torch.Tensor,
@@ -234,17 +243,36 @@ class ASRModel(nn.Module):
         )
         return self.output_logits(h), attn
 
+    def decode_spk(
+        self,
+        y_prev: torch.Tensor,             # [B, L] token ids
+        encoder_out: Dict[str, Any],
+        causal: bool = True,
+    ) -> torch.Tensor:
+        """The speaker head's teacher-forced decode: the shared token
+        embedding and positions over the speaker memory -> per-token speaker
+        logits [B, L, num_speakers]."""
+        mem = self.add_mem_posenc(self.enc_drop(encoder_out["speaker_out"]))
+        y = self.pos_dec(self.embed_tokens(y_prev))
+        h, _, _ = self.spk_decoder(
+            y, mem, causal=causal,
+            memory_key_padding_mask=encoder_out["encoder_padding_mask"],
+        )
+        return self.speaker_head_2(self.speaker_head_1(h))
+
     def forward(self, audio: torch.Tensor, y_prev: torch.Tensor,
                 audio_lens: torch.Tensor, train: bool = False,
                 specaug_seeds: Optional[torch.Tensor] = None):
-        """Full forward. Returns ((lm_logits, None), encoder_out); the second
-        slot is the speaker head's, which is not ported yet. `train` applies
+        """Full forward. Returns ((lm_logits, spk_logits), encoder_out);
+        spk_logits is None without the speaker head. `train` applies
         SpecAugment with `specaug_seeds`; dropout follows the module's
         train() / eval() mode."""
         encoder_out = self.encode(audio, audio_lens, train=train,
                                   specaug_seeds=specaug_seeds)
         lm_logits, _ = self.decode(y_prev, encoder_out, causal=True)
-        return (lm_logits, None), encoder_out
+        spk_logits = (self.decode_spk(y_prev, encoder_out, causal=True)
+                      if self.cfg.use_speaker_head else None)
+        return (lm_logits, spk_logits), encoder_out
 
     # ------------------------------------------------------------------
     # KV-cached incremental decoding
@@ -252,8 +280,9 @@ class ASRModel(nn.Module):
     def init_decode_state(self, encoder_out: Dict[str, Any], batch: int,
                           max_len: int) -> Dict[str, Any]:
         """Decode state: per-layer cross-attn K/V (one-time) + empty
-        self-attn caches + step index (a Python int)."""
-        return {
+        self-attn caches + step index (a Python int); with the speaker head
+        also its own cross K/V and caches (`spk_mem_kvs`, `spk_caches`)."""
+        state = {
             "mem_kvs": self.decoder.precompute_mem_kvs(
                 self.add_mem_posenc(encoder_out["encoder_out"])),
             "caches": self.decoder.init_cache(batch, max_len,
@@ -261,13 +290,22 @@ class ASRModel(nn.Module):
             "index": 0,
             "mask": encoder_out["encoder_padding_mask"],
         }
+        if self.cfg.use_speaker_head:
+            state["spk_mem_kvs"] = self.spk_decoder.precompute_mem_kvs(
+                self.add_mem_posenc(encoder_out["speaker_out"]))
+            state["spk_caches"] = self.spk_decoder.init_cache(
+                batch, max_len, dtype=self.compute_dtype)
+        return state
 
     def decode_step(self, y_tok: torch.Tensor, state: Dict[str, Any]):
         """One decode step with KV caches.
 
         y_tok: [B, 1] current input token. Returns (logits [B, num_tokens],
-        None (speaker-head logits), mean-layer cross-attn [B, S], new_state).
-        The caches inside `state` are written in place."""
+        speaker logits [B, num_speakers] or None, mean-layer cross-attn
+        [B, S], new_state). The speaker head steps on the same embedded token
+        and cache index, when the state holds its caches (a state built by
+        hand without them, as the state machine's, decodes without it). The
+        caches inside `state` are written in place."""
         idx = state["index"]
         y = self.pos_dec(self.embed_tokens(y_tok), offset=idx)
         h, attn, new_caches = self.decoder(
@@ -277,9 +315,19 @@ class ASRModel(nn.Module):
         )
         logits = self.output_logits(h)[:, -1]
         new_state = dict(state, caches=new_caches, index=idx + 1)
+        spk_logits = None
+        if self.cfg.use_speaker_head and "spk_caches" in state:
+            hs, _, new_spk_caches = self.spk_decoder(
+                y, None,
+                memory_key_padding_mask=state["mask"],
+                caches=state["spk_caches"], cache_index=idx,
+                mem_kvs=state["spk_mem_kvs"],
+            )
+            spk_logits = self.speaker_head_2(self.speaker_head_1(hs))[:, -1]
+            new_state["spk_caches"] = new_spk_caches
         # attn: [layers, B, 1, S] -> mean over layers -> [B, S]
         attn_mean = attn[:, :, 0, :].mean(dim=0)
-        return logits, None, attn_mean, new_state
+        return logits, spk_logits, attn_mean, new_state
 
     # ------------------------------------------------------------------
     # Window-based decoding helpers

@@ -6,8 +6,10 @@ Counterpart of tal_asrd_tpu/train/system.py `ASRSystem`:
     there are speakers and no speaker loss), 1 % of the input tokens
     replaced by random text tokens, SpecAugment on the log-mel (kernel K4 on
     the card), label-smoothed masked cross entropy; validation uses no
-    smoothing. `spk_weight > 0` needs the separate speaker head, which is
-    not ported yet: the constructor raises NotImplementedError;
+    smoothing. With `spk_weight > 0` (a model with the separate speaker
+    head) the loss is lm_loss + spk_weight * spk_loss, the speaker loss the
+    same masked cross entropy of the head's logits against `spk_ids[:, 1:]`
+    (padding is excluded by the text mask, not by its id);
   * `train_step`: `grad_acc` micro-batches, their gradients averaged, one
     LAMB update at the square-root-scaled learning rate with linear decay
     over `max_steps` (constant without it); metrics loss, lm_loss,
@@ -77,11 +79,11 @@ class ASRSystem:
                  device: str = "cuda",
                  generator: Optional[torch.Generator] = None):
         """Parameters are drawn from the CPU `generator` (see
-        ASRModel.reset_parameters)."""
-        if train_cfg.spk_weight > 0:
-            raise NotImplementedError(
-                "spk_weight > 0 trains the separate speaker head, which is not "
-                "ported yet")
+        ASRModel.reset_parameters). A speaker loss (`spk_weight > 0`) needs
+        the speaker head (`use_speaker_head`)."""
+        if train_cfg.spk_weight > 0 and not model_cfg.use_speaker_head:
+            raise ValueError("spk_weight > 0 trains the separate speaker head: "
+                             "set use_speaker_head")
         self.cfg = model_cfg
         self.train_cfg = train_cfg
         self.device = torch.device(device)
@@ -143,7 +145,7 @@ class ASRSystem:
         batch = self._to_device(batch)
         self.model.train(train)
         y = batch["text"].long()
-        if cfg.num_speakers > 0:
+        if cfg.num_speakers > 0 and tc.spk_weight == 0:
             # unknown-speaker tokens -> the last speaker id
             y = torch.clamp(y, max=cfg.vocab_size + cfg.num_speakers - 1)
         y_prev, y_target = y[:, :-1], y[:, 1:]
@@ -154,13 +156,17 @@ class ASRSystem:
             seeds = noise["specaug_seeds"]
             if "replace" in noise:
                 y_prev = torch.where(noise["replace"], noise["replace_tok"], y_prev)
-        (lm_logits, _), _ = self.model(batch["audio"], y_prev, batch["audio_lens"],
-                                       train=train, specaug_seeds=seeds)
+        (lm_logits, spk_logits), _ = self.model(batch["audio"], y_prev, batch["audio_lens"],
+                                                train=train, specaug_seeds=seeds)
         smooth = tc.smoothing if train else 0.0
         mask = batch["text_mask"][:, 1:]
         lm_loss = masked_token_loss(lm_logits, y_target, mask, smooth)
         spk_loss = torch.zeros((), dtype=torch.float32, device=self.device)
-        return lm_loss, {"loss": lm_loss, "lm_loss": lm_loss, "spk_loss": spk_loss}
+        if tc.spk_weight > 0:
+            spk_loss = masked_token_loss(spk_logits, batch["spk_ids"][:, 1:].long(), mask,
+                                         smooth)
+        loss = lm_loss + tc.spk_weight * spk_loss
+        return loss, {"loss": loss, "lm_loss": lm_loss, "spk_loss": spk_loss}
 
     def compute_grads(self, batch: Batch) -> Dict[str, torch.Tensor]:
         """Average gradient of the batch over `grad_acc` micro-batches into

@@ -88,11 +88,14 @@ def test_beam_search_takes_encoder_out_directly(world):
 
 @pytest.mark.parametrize("field", ["lm_weight", "collect_spk", "collect_spk_embed"])
 def test_unported_beam_options_raise(world, field):
-    """The speaker-head track still raises. The speaker-embedding track is
-    ported (its parity with JAX: tests/test_torch_runner.py): it runs when
-    the spec names the model's speakers and refuses a spec that does not.
-    LM fusion is ported (tests/test_torch_lm_fusion.py): an LM weight
-    without an LM is inert, as in the reference, and gives JAX's tokens."""
+    """Every option is ported. The speaker-head track (its parity with JAX:
+    tests/test_torch_spk_decode.py) refuses a model without the head and, on
+    the same weights with a seeded head, keeps [B, max_new, S] bf16 rows
+    and leaves the tokens as they are. The speaker-embedding track
+    (tests/test_torch_runner.py) runs when the spec names the model's
+    speakers and refuses a spec that does not. LM fusion is ported
+    (tests/test_torch_lm_fusion.py): an LM weight without an LM is inert, as
+    in the reference, and gives JAX's tokens."""
     spec = world["spec"](BeamSearchSpec, 1, True, -1)
     setattr(spec, field, 0.5 if field == "lm_weight" else True)
     gen = make_generate_fn(world["tmodel"], spec, device="cpu")
@@ -101,15 +104,44 @@ def test_unported_beam_options_raise(world, field):
         out = gen(*args)
         np.testing.assert_array_equal(out["tokens"].numpy(), world["refs"][(1, True, False)]["tokens"])
         return
-    if field != "collect_spk_embed":
-        with pytest.raises(NotImplementedError):
+    if field == "collect_spk":
+        with pytest.raises(ValueError, match="speaker head"):
             gen(*args)
+        head = head_twin(world["tmodel"])
+        spec.vocab_size = head.cfg.num_tokens
+        spec.num_speakers = head.cfg.num_speakers
+        out = make_generate_fn(head, spec, device="cpu")(*args)
+        assert out["spk"].shape == (BATCH, MAX_NEW, head.cfg.num_speakers)
+        assert out["spk"].dtype == torch.bfloat16 and bool(out["spk"].abs().sum() > 0)
+        spec.collect_spk = False
+        plain = make_generate_fn(head, spec, device="cpu")(*args)
+        np.testing.assert_array_equal(out["tokens"].numpy(), plain["tokens"].numpy())
         return
     with pytest.raises(ValueError, match="num_speakers"):
         gen(*args)
     spec.num_speakers = world["tmodel"].cfg.num_speakers
     out = make_generate_fn(world["tmodel"], spec, device="cpu")(*args)
     assert out["spk_embed"].shape == (BATCH, MAX_NEW, 64)
+
+
+def head_twin(model):
+    """The same text weights with a seeded speaker head (ReZero scalars
+    0.4) and the speaker tokens' rows dropped from the embedding."""
+    from dataclasses import replace
+
+    from tal_asrd_tpu_torch.models.asr import ASRModel
+    cfg = replace(model.cfg, use_speaker_head=True)
+    head = ASRModel(cfg, device="cpu", generator=torch.Generator().manual_seed(2))
+    own = model.state_dict()
+    with torch.no_grad():
+        for name, p in head.state_dict().items():
+            if name == "embedding.weight":
+                p.copy_(own[name][:cfg.num_tokens])
+            elif name in own:
+                p.copy_(own[name])
+            elif p.dim() == 0:
+                p.fill_(0.4)
+    return head
 
 
 def test_generate_defaults_to_cuda():

@@ -147,8 +147,20 @@ def test_enc_posenc_gate_matches_jax():
 
 
 def test_speaker_head_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        ASRModel(ModelConfig(use_speaker_head=True, **TINY), device="cpu")
+    """The speaker head is ported (its parity with JAX:
+    tests/test_torch_spk_head.py): a head model builds with the head's
+    modules, gives per-token speaker logits beside text-only logits, and is
+    refused by the fused decoder, as the reference's assert refuses it."""
+    from tal_asrd_tpu_torch.decode.fused_step import FusedASRDecoder
+    model = ASRModel(ModelConfig(use_speaker_head=True, **TINY), device="cpu")
+    audio, lens = tiny_audio(2)
+    y = torch.zeros((2, 3), dtype=torch.long)
+    with torch.no_grad():
+        (lm, spk), enc = model(torch.from_numpy(audio), y, torch.from_numpy(lens))
+    assert lm.shape == (2, 3, TINY["vocab_size"]) and spk.shape == (2, 3, TINY["num_speakers"])
+    assert enc["speaker_out"].shape == enc["encoder_out"].shape
+    with pytest.raises(ValueError, match="speaker-token mode"):
+        FusedASRDecoder(model)
 
 
 def test_initial_weights_are_the_references_truncated_lecun_normal():

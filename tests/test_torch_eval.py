@@ -167,32 +167,47 @@ CLI_BASE = ["--tokenizer", BPE, "--model-type", "1x", "--num-speakers", "8",
             "--load", CHECKPOINT, "--num-workers", "0"]
 
 
+def spk_reference_script():
+    """scripts/torch_spk_reference.py, for `seeded_spk_tree` (numpy only)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_spk_reference", os.path.join(ROOT, "scripts", "torch_spk_reference.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 @pytest.mark.parametrize("flags,item", [
     (["--unaligned"], "A9"), (["--lm-path", "lm.msgpack"], "A14"),
-    (["--lm-weight", "0.3"], "A14"), (["--spk-weight", "0.5"], "A12.2"),
+    (["--lm-weight", "0.3"], "A14"),
+    (["--spk-weight", "0.5", "--fused-decode", "--load", "SPK_TREE"], "A12.2"),
     (["--bf16-params"], "A8")])
 def test_cli_refuses_what_is_not_ported(flags, item, tmp_path):
-    """The speaker head (A12.2) exits with its item; --unaligned (A9),
-    --bf16-params (once parked on A8) and LM fusion (A14) are ported: the
-    CLI runs them on a split of one episode (--unaligned: 8 s, one padded
-    window of the state machine; the others: the aligned leg on the first 3
-    utterances of a 30 s episode, under --bf16-params every parameter bf16)
-    and writes its outputs. --lm-path without --lm-weight, or --lm-weight
-    without --lm-path, decodes without an LM, as the reference's CLI does
-    (the path is not read; tests/test_torch_lm_fusion.py runs both flags)."""
+    """Nothing is refused any more: --unaligned (A9), --bf16-params (once
+    parked on A8), LM fusion (A14) and the speaker head (A12.2) run on a
+    split of one episode (--unaligned: 8 s, one padded window of the state
+    machine; the others: the aligned leg on the first 3 utterances of a
+    30 s episode, under --bf16-params every parameter bf16) and write their
+    outputs. --lm-path without --lm-weight, or --lm-weight without
+    --lm-path, decodes without an LM, as the reference's CLI does (the path
+    is not read; tests/test_torch_lm_fusion.py runs both flags). With
+    --spk-weight the CLI loads a speaker-head tree (the tracked checkpoint's
+    text weights with a seeded head), decodes through the model itself even
+    under --fused-decode, and writes each utterance's speaker logits."""
     from tal_asrd_tpu_torch.cli.test import main
+    from tal_asrd_tpu_torch.core.checkpoint import load_pytree, save_pytree
     d = str(tmp_path)
+    if item == "A12.2":
+        tree = os.path.join(d, "spk_tree.msgpack")
+        save_pytree(tree, spk_reference_script().seeded_spk_tree(load_pytree(CHECKPOINT), 300,
+                                                                 0, 0.4))
+        flags = [tree if f == "SPK_TREE" else f for f in flags]
     argv = ["--train-data", d, "--valid-data", d, "--test-data", d, "--out-dir", d,
             "--device", "cpu"] + CLI_BASE + flags
-    if item not in ("A9", "A8", "A14"):
-        with pytest.raises(SystemExit) as exc:
-            main(argv)
-        assert item in str(exc.value.code)
-        return
     from tal_asrd_tpu_torch.data.synth import build_synth_corpus
     transcripts = build_synth_corpus(d, n_episodes=1, n_speakers=8, seed=202,
                                      episode_seconds=8.0 if item == "A9" else 30.0)
-    if item in ("A8", "A14"):
+    if item in ("A8", "A14", "A12.2"):
         with open(os.path.join(d, "transcript.pkl"), "wb") as f:
             pickle.dump({"ep0": transcripts["ep0"][:3]}, f)
     n = torch.get_num_threads()
@@ -201,15 +216,22 @@ def test_cli_refuses_what_is_not_ported(flags, item, tmp_path):
         res = main(argv)
     finally:
         torch.set_num_threads(n)
-    params = list(res["runner"].model.parameters())
+    runner = res["runner"]
+    params = list(runner.model.parameters())
     assert all(p.dtype == (torch.bfloat16 if item == "A8" else torch.float32) for p in params)
-    assert res["runner"].lm is None and res["runner"].lm_weight == 0.0
+    assert runner.lm is None and runner.lm_weight == 0.0
     if item == "A9":
         (step,) = res["steps"]
         assert step["idx"] == 0 and step["events"]["windows"] >= 1 and step["iters"] > 0
         assert step["num_tokens"] == len(step["tokens"]) > 1
     with open(os.path.join(d, "test_result.pkl"), "rb") as f:
-        assert len(pickle.load(f)) == len(res["runner"].test_outputs) >= 1
+        results = pickle.load(f)
+    assert len(results) == len(runner.test_outputs) >= 1
+    if item == "A12.2":
+        assert runner.model.cfg.use_speaker_head and runner._decode_model is runner.model
+        hyps = [u for _, hyp in results for u in hyp]
+        assert hyps and all(u["speakerLogits"].shape[1] == 8 and "speakerEmbed" not in u
+                            for u in hyps)
 
 
 @pytest.fixture

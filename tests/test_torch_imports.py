@@ -81,6 +81,35 @@ def test_the_lm_modules_are_among_the_checked_ones():
             "tal_asrd_tpu_torch.cli.train_lm"} <= mods
 
 
+def test_the_speaker_head_reference_script_builds_its_tree_with_numpy_alone():
+    """scripts/torch_spk_reference.py's `seeded_spk_tree` (chip_smoke.py
+    rebuilds the speaker-head tree with it on the card) imports numpy only:
+    neither torch nor JAX nor the JAX package."""
+    code = (
+        "import importlib.util, sys\n"
+        "import numpy as np\n"
+        f"spec = importlib.util.spec_from_file_location('r', {os.path.join(ROOT, 'scripts', 'torch_spk_reference.py')!r})\n"
+        "mod = importlib.util.module_from_spec(spec); spec.loader.exec_module(mod)\n"
+        "tracked = {'encoder': {'w': np.zeros(3)}, 'decoder_proj': {'kernel': np.zeros((4, 2))},\n"
+        "           'decoder': {}, 'embedding_proj': np.zeros((2, 2)),\n"
+        "           'embedding': {'embedding': np.arange(10 * 2).reshape(10, 2)}}\n"
+        "t = mod.seeded_spk_tree(tracked, 6, 0, 0.4, enc_channels=4, d=2, ff=4, layers=1,\n"
+        "                        spk_embed=3, speakers=4, speaker_slots=(1, 2, 3, 5))\n"
+        "assert t['embedding']['embedding'][[1, 2, 3, 5]].tolist() == tracked['embedding']['embedding'][6:].tolist()\n"
+        "assert t['speaker_head_2']['kernel'].shape == (3, 4)\n"
+        "assert float(t['spk_decoder']['layers_0']['resweight']) == np.float32(0.4)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'tal_asrd_tpu', 'tal_asrd_tpu_torch', 'torch'))\n"
+        "print('BAD=' + ','.join(bad))\n"
+    )
+    site_dirs = [p for p in sys.path if p.endswith("site-packages")]
+    boot = f"import sys; sys.path.extend({site_dirs!r})\n"
+    res = subprocess.run([sys.executable, "-S", "-E", "-c", boot + code],
+                         capture_output=True, text=True, cwd=ROOT, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert "BAD=\n" in res.stdout + "\n", res.stdout
+
+
 @pytest.mark.parametrize("target", ["ASRModel", "make_generate_fn", "ASRSystem",
                                     "EvalRunner", "cli.test", "Transcriber",
                                     "cli.transcribe", "cli.vad", "cli.train",

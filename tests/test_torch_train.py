@@ -281,7 +281,21 @@ def test_attention_drops_probabilities_after_the_head_mean():
 
 
 def test_speaker_loss_is_not_ported():
-    with pytest.raises(NotImplementedError):
+    """The speaker loss is ported (its parity with JAX:
+    tests/test_torch_spk_train.py): with the head, one train_step gives
+    loss = lm_loss + spk_weight * spk_loss and moves the head; a speaker
+    loss without the head is refused."""
+    batch = tiny_batch()
+    batch["text"] = np.minimum(batch["text"], 31)         # no speaker tokens
+    tsys = ASRSystem(ModelConfig(use_speaker_head=True, **TINY), TrainConfig(**dict(
+        TRAIN, spk_weight=0.5)), FrontendConfig(**FRONTEND), SpecAugmentConfig(**NO_AUG),
+        compute_dtype=torch.float32, device="cpu", generator=torch.Generator().manual_seed(0))
+    before = tsys.model.speaker_head_2.weight.detach().clone()
+    m = {k: float(v) for k, v in tsys.train_step(batch).items()}
+    assert m["spk_loss"] > 0 and np.isfinite(m["loss"])
+    assert m["loss"] == pytest.approx(m["lm_loss"] + 0.5 * m["spk_loss"], rel=1e-6)
+    assert not torch.equal(before, tsys.model.speaker_head_2.weight.detach())
+    with pytest.raises(ValueError, match="use_speaker_head"):
         ASRSystem(ModelConfig(**TINY), TrainConfig(spk_weight=0.5), device="cpu")
 
 

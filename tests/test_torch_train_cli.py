@@ -243,11 +243,40 @@ def test_first_update_after_a_restore_uses_schedule_zero(tmp_path):
     (["--spk-weight", "0.5"], "A12.2"), (["--mesh-data", "2"], "A13"),
     (["--mesh-model", "2"], "A13")])
 def test_flags_outside_the_slice_are_refused(tmp_path, flags, item):
-    argv = ["--train-data", "d", "--valid-data", "d", "--tokenizer", "t", "--model-type",
-            "1x", "--name", "run", "--checkpoint-path", str(tmp_path)] + flags
-    with pytest.raises(SystemExit) as e:
-        cli_train.main(argv)
-    assert item in str(e.value)
+    """A mesh of more than one device (A13) is refused, naming its item.
+    The speaker head (A12.2) is ported (its parity with the JAX CLI:
+    tests/test_torch_spk_train.py): --spk-weight 0.5 trains the head, here
+    one --quick-test step at TAL_TINY_ARCH on a split of one 20 s episode,
+    the text without speaker tokens and the step's speaker loss logged."""
+    if item != "A12.2":
+        argv = ["--train-data", "d", "--valid-data", "d", "--tokenizer", "t", "--model-type",
+                "1x", "--name", "run", "--checkpoint-path", str(tmp_path)] + flags
+        with pytest.raises(SystemExit) as e:
+            cli_train.main(argv)
+        assert item in str(e.value)
+        return
+    d = str(tmp_path / "split")
+    build_synth_corpus(d, n_episodes=1, episode_seconds=20.0, n_speakers=8, seed=0)
+    argv = ["--train-data", d, "--valid-data", d, "--tokenizer",
+            os.path.join(ROOT, TOKENIZER), "--model-type", "1x", "--num-speakers", "8",
+            "--batch-size", "2", "--max-secs", "12", "--num-workers", "0", "--quick-test",
+            "--max-epochs", "1", "--no-specaug", "--name", "run", "--checkpoint-path",
+            str(tmp_path / "ckpts"), "--out-dir", str(tmp_path / "out"), "--device", "cpu"]
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with mock.patch.dict(os.environ, {"TAL_TINY_ARCH": "1"}), \
+                mock.patch.object(cli_train, "TrainerConfig",
+                                  partial(TrainerConfig, log_every=1)):
+            out = cli_train.main(argv + flags)
+    finally:
+        torch.set_num_threads(threads)
+    system = out["system"]
+    assert system.model.cfg.use_speaker_head and system.train_cfg.spk_weight == 0.5
+    assert system.model.cfg.num_tokens == 300                  # no speaker tokens
+    with open(out["metrics_path"]) as f:
+        steps = [r for r in map(json.loads, f) if "loss" in r]
+    assert steps and all(r["spk_loss"] > 0 and np.isfinite(r["loss"]) for r in steps)
 
 
 def test_the_parser_takes_every_flag_of_the_reference():
