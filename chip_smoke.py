@@ -9,6 +9,8 @@
     python3 chip_smoke.py --phases train_cli # ... + the training CLI only
     python3 chip_smoke.py --phases lm        # ... + LM shallow fusion only
     python3 chip_smoke.py --phases spk       # ... + the separate speaker head only
+    python3 chip_smoke.py --phases noncausal # ... + the non-causal and sharded decode only
+    python3 chip_smoke.py --phases embed     # ... + the speaker-embedding chain only
 
 Builds the port's CUDA kernels from tal_asrd_tpu_torch/csrc/ with nvcc, holds
 each against its plain PyTorch version on the card at the shapes its paths
@@ -75,6 +77,23 @@ the head; both long-form legs — then the training CLI for 2 epochs against
 the JAX CLI's validation losses, one resumed epoch with SpecAugment (K4),
 and the eval CLI on the last checkpoint.
 
+Then the non-causal reference decode and the sharded decode
+(`noncausal_1x`, `--phases noncausal`): on the test split's two batches the
+causal greedy search and `greedy_noncausal` at the same length (their
+token agreement printed), `greedy_noncausal` in f32 against the JAX CPU
+reference (tests/fixtures/torch_embed_reference.json), and
+`make_sharded_decode` / `make_sharded_unaligned` on one and two shards of
+the card against the unsharded decode, in bf16 and in f32 (K2 on the first
+part's device at the whole batch's N = 64064 / 72004, for its mean; at a
+part's N = 32032 / 36002 on the other).
+
+Then the speaker-embedding chain (`embed_1x`, `--phases embed`,
+scripts/embed_chain.sh steps 1-2): `python -m
+tal_asrd_tpu_torch.cli.gen_embed` on the test split in f32 against the JAX
+CLI's rows and in bf16 as users run it, and on the train split cut to 8
+episodes; `python -m tal_asrd_tpu_torch.cli.train_embed` at its defaults on
+the port's pickles and on the JAX CLI's, against its valid accuracy.
+
 Then it runs the training CLI (`train_cli_1x`): `python -m
 tal_asrd_tpu_torch.cli.train`'s `main` at scripts/accuracy.sh's last
 phase's flags (B = 16, --max-secs 28.5, --shiftaug --cache-items
@@ -91,7 +110,7 @@ K4 at [16, 3001, 80], both on int16 audio.
 Prints one JSON object per line: `device`, one `kernel` line per check,
 `k3_vs_k1_chain`, `k1_determinism`, `k3_determinism`, `kernel_timing`, one `serve_*` line per configuration,
 `eval_aligned_1x`, `prefill_handoff`, `eval_unaligned_1x`, `lm_fusion_1x`, `spk_head_1x`,
-`train_2x`, `train_1x_checkpoint`, `train_cli_1x`, `kernels` (every kernel of each path with
+`noncausal_1x`, `embed_1x`, `train_2x`, `train_1x_checkpoint`, `train_cli_1x`, `kernels` (every kernel of each path with
 its launch count in that path's one timed run, its error against the plain
 version, its time, the plain version's, a library call's where one exists,
 and the least time the card could take), and last
@@ -2898,6 +2917,536 @@ def train_cli_entries(t):
     ]
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the non-causal reference decode and the sharded decode (noncausal_1x)
+# ---------------------------------------------------------------------------
+# The tracked checkpoint as the eval CLI builds it (f32 parameters, bf16
+# compute) on the test split's 118 segments in the eval CLI's batches of 64
+# and 54 (K2 at N = 64064 / 54054); the sharded beam search splits the first
+# batch in two, the sharded state machine the 4 episodes of 180 s (K2 at
+# the whole batch's N = 64064 / 72004 on the first part's device, which takes
+# the batch mean there, and at a part's N = 32032 / 2 x 18001 = 36002 on the
+# other).
+EMBED_FIXTURE = os.path.join("tests", "fixtures", "torch_embed_reference.json")
+EMBED_ARRAYS = os.path.join("tests", "fixtures", "torch_embed_reference_arrays.npz")
+NC_ATTN_TOL = 1e-4                   # the f32 attn rows against the JAX CPU reference's
+SHARD_DEVICES = (("cuda:0",), ("cuda:0", "cuda:0"))
+
+
+def token_agreement(a, b):
+    """tests/test_deviations.py's deviation-A measure: equal tokens over
+    the common prefix, divided by the longer length."""
+    n = min(len(a), len(b))
+    if n == 0:
+        return 0.0
+    return sum(int(x == y) for x, y in zip(a[:n], b[:n])) / max(len(a), len(b))
+
+
+def tracked_1x(torch, dev, root, compute_dtype):
+    """The eval CLI's model: f32 parameters holding the tracked checkpoint,
+    computing in `compute_dtype`."""
+    from tal_asrd_tpu_torch.core.checkpoint import load_pytree
+    from tal_asrd_tpu_torch.core.config import ModelConfig
+    from tal_asrd_tpu_torch.core.convert import load_into
+    from tal_asrd_tpu_torch.models.asr import ASRModel
+    model = ASRModel(ModelConfig(model_type="1x", num_speakers=8, vocab_size=300),
+                     dtype=torch.float32, compute_dtype=compute_dtype, device="cpu")
+    load_into(model, load_pytree(os.path.join(root, "accuracy_release",
+                                              "avg_last_3.bf16.msgpack")))
+    return model.to(dev)
+
+
+def eval_split_of(out_dir):
+    """The test split as scripts/ensure_corpus.sh builds it, shared by the
+    phases (built by the first that needs it)."""
+    from tal_asrd_tpu_torch.data.synth import build_synth_corpus
+    split = os.path.join(out_dir, "eval_split")
+    if not os.path.exists(os.path.join(split, "transcript.pkl")):
+        build_synth_corpus(split, **EVAL_SPLIT)
+    return split
+
+
+def run_noncausal_1x(torch, dev, root, out_dir, card):
+    """The non-causal reference decode and the sharded decode on the card.
+    (1) The main path, bf16 as the eval CLI computes: each batch encoded,
+    then the causal greedy search (`beam_search`, beam 1, unfused) and
+    `greedy_noncausal` at the same length; their seconds and steps, and the
+    token agreement per segment and mean (a property of the causally
+    trained checkpoint: printed, no gate); K2 once a batch, K1 never. (2)
+    In f32, `greedy_noncausal` on the first 16 segments as one batch: every
+    segment's tokens and length equal the JAX CPU reference's, the first
+    8 rows' `attn` within NC_ATTN_TOL. (3) `make_sharded_decode` (beam 5,
+    the first batch) and `make_sharded_unaligned` (the 4 episodes) on one
+    and two shards of cuda:0, in bf16 and in f32: every row's tokens and
+    length equal the unsharded `beam_search` / `unaligned_decode_batched`'s.
+    Printed beside them: the state machine's WER / WDER, sharded and not,
+    and where the two-part encode parts from the whole batch's (features,
+    and the encoder on the whole batch's features a part at a time)."""
+    from tal_asrd_tpu_torch.core.config import DecodeConfig
+    from tal_asrd_tpu_torch.data.aligned import AlignedDataset
+    from tal_asrd_tpu_torch.data.audio_io import load_audio_segment
+    from tal_asrd_tpu_torch.data.collate import BucketedCollater
+    from tal_asrd_tpu_torch.data.loader import DataLoader, to_device
+    from tal_asrd_tpu_torch.decode.beam import BeamSearchSpec, beam_search
+    from tal_asrd_tpu_torch.decode.reference_mode import greedy_noncausal
+    from tal_asrd_tpu_torch.decode.sharded import (
+        make_sharded_decode, make_sharded_unaligned, sharded_features)
+    from tal_asrd_tpu_torch.decode.unaligned import unaligned_decode_batched
+    from tal_asrd_tpu_torch.eval.convert import score_test_result
+    from tal_asrd_tpu_torch.eval.runner import EvalRunner
+    from tal_asrd_tpu_torch.models.asr import ASRModel
+    from tal_asrd_tpu_torch.ops.cuda_decode import fused_layer_step
+    from tal_asrd_tpu_torch.ops.cuda_kernels import fused_logmel_project
+    from tal_asrd_tpu_torch.text.bpe import BpeTokenizer
+
+    split = eval_split_of(out_dir)
+    tok = BpeTokenizer(model_path=os.path.join(root, "accuracy_release", "bpe.model"))
+    ds = AlignedDataset(split, tok, num_utterances=1, min_segment_duration=3,
+                        max_segment_duration=20,
+                        speaker_map_loc=os.path.join(split, "speaker_map.json"),
+                        tokenizer_speakers=True, return_spk_ids=True)
+    coll = BucketedCollater(tok.pad_token_id)
+    batches = list(DataLoader(ds, 64, coll, num_workers=0, drop_last=False))
+    with open(os.path.join(root, EMBED_FIXTURE)) as f:
+        ref = json.load(f)["noncausal"]["card"]
+    ref_attn = np.load(os.path.join(root, EMBED_ARRAYS))["noncausal/card/attn"]
+    eos = tok.eos_token_id
+    counters = {"fused_layer_step": fused_layer_step,
+                "fused_logmel_project": fused_logmel_project}
+    calls = {"decode_step": 0, "decode": 0}
+    originals = {name: getattr(ASRModel, name) for name in calls}
+
+    def counting(name):
+        def wrapped(self, *args, **kwargs):
+            calls[name] += 1
+            return originals[name](self, *args, **kwargs)
+        return wrapped
+
+    def spec_of(model, batch, k):
+        return BeamSearchSpec(beam_size=k, max_new_tokens=int(batch["text"].shape[1] * 1.1) + 2,
+                              eos_id=eos, vocab_size=model.cfg.num_tokens,
+                              text_vocab_size=len(tok), force_output=k == 1)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def both_greedy(model, batch):
+        t = to_device({k: batch[k] for k in ("audio", "audio_lens", "text")}, dev)
+        prime = t["text"][:, :1].long()
+        spec = spec_of(model, batch, 1)
+        with torch.inference_mode():
+            enc, enc_s = timed(lambda: model.encode(t["audio"], t["audio_lens"]))
+            calls.update(decode_step=0, decode=0)
+            causal, causal_s = timed(lambda: beam_search(model, enc, prime, spec))
+            causal_steps = calls["decode_step"] - prime.shape[1]
+            nc, nc_s = timed(lambda: greedy_noncausal(model, enc, prime,
+                                                      spec.max_new_tokens + 1, eos_id=eos))
+        return {"encode_s": enc_s, "causal_s": causal_s, "causal_steps": causal_steps,
+                "noncausal_s": nc_s, "noncausal_steps": calls["decode"],
+                "causal": {k: causal[k].cpu() for k in ("tokens", "lengths")},
+                "noncausal": {k: nc[k].cpu() for k in ("tokens", "lengths", "attn")}}
+
+    model = tracked_1x(torch, dev, root, torch.bfloat16)
+    for name in calls:
+        setattr(ASRModel, name, counting(name))
+    try:
+        both_greedy(model, batches[0])          # warm-up: cuDNN picks, the allocator grows
+        # The main path's run: counts set to 0 just before it, read just after.
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs = [both_greedy(model, b) for b in batches]
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+    finally:
+        for name, fn in originals.items():
+            setattr(ASRModel, name, fn)
+
+    agreement = []
+    for r in runs:
+        c, nc = r["causal"], r["noncausal"]
+        for i in range(len(c["lengths"])):
+            agreement.append(token_agreement(c["tokens"][i, 1:int(c["lengths"][i])].tolist(),
+                                             nc["tokens"][i, 1:int(nc["lengths"][i])].tolist()))
+
+    # (2) f32 against the JAX CPU reference: the first 16 segments, one batch
+    model32 = tracked_1x(torch, dev, root, torch.float32)
+    first = next(iter(DataLoader(ds, len(ref["idx"]), coll, num_workers=0, drop_last=False)))
+    if first["idx"].tolist() != ref["idx"]:
+        fail(f"noncausal_1x: the f32 batch holds segments {first['idx'].tolist()}, the "
+             f"reference's {ref['idx']}")
+    t = to_device({k: first[k] for k in ("audio", "audio_lens", "text")}, dev)
+    with torch.inference_mode():
+        enc32 = model32.encode(t["audio"], t["audio_lens"])
+        got32 = greedy_noncausal(model32, enc32, t["text"][:, :1].long(), ref["max_len"],
+                                 eos_id=eos)
+    lengths32 = got32["lengths"].tolist()
+    tokens32 = [got32["tokens"][i, :n].tolist() for i, n in enumerate(lengths32)]
+    f32_equal = sum(a == b for a, b in zip(tokens32, ref["tokens"]))
+    n_attn = min(len(ref_attn), len(lengths32))
+    attn_err = float(np.abs(got32["attn"][:n_attn].cpu().numpy() - ref_attn[:n_attn]).max())
+
+    # (3) the sharded decode, in bf16 and in f32
+    b0 = batches[0]
+    # the episodes in the eval CLI's --unaligned order, with their references
+    eps_ds = AlignedDataset(split, tok, num_utterances=None, min_segment_duration=None,
+                            max_segment_duration=None,
+                            speaker_map_loc=os.path.join(split, "speaker_map.json"),
+                            tokenizer_speakers=True, return_spk_ids=True)
+    refs = [eps_ds.index[i][1] for i in range(len(eps_ds))]
+    wavs = [load_audio_segment(os.path.join(split, f"{eps_ds.index[i][0]}.wav"), 0.0, None)
+            for i in range(len(eps_ds))]
+    episodes = np.stack(wavs).astype(np.float32)
+    ep_lens = np.full((len(wavs),), episodes.shape[1], np.int32)
+    sm_spec = EvalRunner(model, tok, DecodeConfig(), out_dir=out_dir,
+                         device=dev)._default_unaligned_spec()
+
+    def sm_scored(m, out, tag):
+        """The state machine's outputs scored as the eval CLI's --unaligned
+        leg scores them (corpus WER / WDER, percent)."""
+        where = os.path.join(out_dir, f"noncausal_sm_{tag}")
+        runner = EvalRunner(m, tok, DecodeConfig(), out_dir=where, device=dev)
+        host = {k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in out.items()}
+        for lane, utts in enumerate(refs):
+            runner._finish_unaligned(host, lane, utts)
+        scored = score_test_result(os.path.join(where, "test_result.pkl"))
+        return {"wer_pct": 100.0 * scored["overall_wer"],
+                "wder_pct": 100.0 * scored["overall_wder"]}
+
+    def split_witness(m, devs):
+        """Where the parts' encoder output parts from the whole batch's:
+        their features against the whole batch's (the frontend mean), and
+        the encoder run on the whole batch's own features a part at a time
+        against the whole batch (the kernels at another batch size)."""
+        ea, el = torch.from_numpy(episodes).to(dev), torch.from_numpy(ep_lens).to(dev)
+        n = len(wavs) // len(devs)
+        feats = m.extract_features(ea, el)
+        whole = m.encode_features(feats, el, ea.shape[-1])["encoder_out"].float()
+        parts = sharded_features([m] * len(devs), devs, episodes, ep_lens)
+        by_part = torch.cat([m.encode_features(feats[i * n:(i + 1) * n], el[i * n:(i + 1) * n],
+                                               ea.shape[-1], batch_max_len=ea.shape[-1])
+                             ["encoder_out"] for i in range(len(devs))]).float()
+        split_out = torch.cat([m.encode_features(f, l, ea.shape[-1], batch_max_len=ea.shape[-1])
+                               ["encoder_out"] for f, l in parts]).float()
+
+        def apart(a, b):
+            a, b = a.float(), b.float()
+            return {"share_differing": float((a != b).float().mean()),
+                    "max_abs_diff": float((a - b).abs().max())}
+        return {"features": apart(torch.cat([f for f, _ in parts]), feats),
+                "encoder_whole_features_by_part": apart(by_part, whole),
+                "encoder_out": dict(apart(split_out, whole),
+                                    rms=float(whole.pow(2).mean().sqrt()))}
+
+    sharded = {}
+    for dtype_name, m in (("bf16", model), ("f32", model32)):
+        spec5 = spec_of(m, b0, 5)
+        a, l = torch.from_numpy(b0["audio"]).to(dev), torch.from_numpy(b0["audio_lens"]).to(dev)
+        prime = torch.from_numpy(b0["text"][:, :1]).long().to(dev)
+        with torch.inference_mode():
+            want, want_s = timed(lambda: beam_search(m, m.encode(a, l), prime, spec5))
+            ea, el = torch.from_numpy(episodes).to(dev), torch.from_numpy(ep_lens).to(dev)
+
+            def unsharded_sm():
+                enc = m.encode(ea, el)
+                return unaligned_decode_batched(m, enc, (~enc["encoder_padding_mask"]).sum(-1),
+                                                sm_spec)
+            want_sm, want_sm_s = timed(unsharded_sm)
+        rec = {"beam": {"unsharded_s": want_s}, "sm": {"unsharded_s": want_sm_s}}
+        for devs in SHARD_DEVICES:
+            for fn in counters.values():
+                fn.launches = 0
+            got, secs = timed(lambda: make_sharded_decode(m, spec5, devs)(
+                b0["audio"], b0["audio_lens"], b0["text"][:, :1]))
+            k2_beam = fused_logmel_project.launches
+            rows = sum(bool(torch.equal(got["tokens"][i].cpu(), want["tokens"][i].cpu())
+                            and int(got["lengths"][i]) == int(want["lengths"][i]))
+                       for i in range(len(b0["idx"])))
+            rec["beam"][f"{len(devs)}_shards"] = {"s": secs, "rows_equal": rows,
+                                                  "k2_launches": k2_beam}
+            for fn in counters.values():
+                fn.launches = 0
+            got_sm, secs = timed(lambda: make_sharded_unaligned(m, sm_spec, devs)(
+                episodes, ep_lens))
+            k2_sm = fused_logmel_project.launches
+            eps_equal = sum(bool(torch.equal(got_sm["tokens"][i].cpu(), want_sm["tokens"][i].cpu())
+                                 and int(got_sm["num_tokens"][i]) == int(want_sm["num_tokens"][i]))
+                            for i in range(len(wavs)))
+            rec["sm"][f"{len(devs)}_shards"] = {
+                "s": secs, "episodes_equal": eps_equal, "k2_launches": k2_sm,
+                "k1_launches": fused_layer_step.launches,
+                "first_divergence": first_divergence(got_sm["tokens"].cpu().numpy(),
+                                                     want_sm["tokens"].cpu().numpy()),
+                "num_tokens": got_sm["num_tokens"].tolist(),
+                **sm_scored(m, got_sm, f"{dtype_name}_{len(devs)}_shards")}
+        rec["sm"]["unsharded"] = {"num_tokens": want_sm["num_tokens"].tolist(),
+                                  **sm_scored(m, want_sm, f"{dtype_name}_unsharded")}
+        with torch.inference_mode():
+            rec["sm"]["two_shards_witness"] = split_witness(m, SHARD_DEVICES[-1])
+        sharded[dtype_name] = rec
+
+    out = {"phase": "noncausal_1x", "card": card, "segments": len(ds),
+           "batches": [len(b["idx"]) for b in batches], "main_s": main_s,
+           "launches": launches,
+           "runs": [{k: r[k] for k in ("encode_s", "causal_s", "causal_steps", "noncausal_s",
+                                       "noncausal_steps")} for r in runs],
+           "agreement_mean": float(np.mean(agreement)), "agreement": agreement,
+           "agreement_jax_cpu_f32_first16": ref["mean_agreement"],
+           "f32_vs_jax": {"segments": len(ref["idx"]), "tokens_equal": f32_equal,
+                          "lengths_equal": lengths32 == ref["lengths"],
+                          "attn_max_abs_err": attn_err, "attn_rows": len(ref_attn),
+                          "attn_tolerance": NC_ATTN_TOL},
+           "sharded": sharded, "shards_of": list(map(list, SHARD_DEVICES)),
+           "k2_rows": {"main": [len(b["idx"]) * (1 + EVAL_SAMPLES // 160) for b in batches],
+                       "beam_part": (len(b0["idx"]) // 2) * (1 + EVAL_SAMPLES // 160),
+                       "sm_part": (len(wavs) // 2) * (1 + episodes.shape[1] // 160)}}
+    emit(out)
+    del model, model32
+    torch.cuda.empty_cache()
+    want = {"fused_layer_step": 0, "fused_logmel_project": len(batches)}
+    if launches != want:
+        fail(f"noncausal_1x: launches {launches}, expected {want}")
+    if len(ds) != 118 or out["batches"] != [64, 54]:
+        fail(f"noncausal_1x: {len(ds)} segments in batches {out['batches']}, expected 118 "
+             f"in [64, 54]")
+    if f32_equal != len(ref["idx"]) or lengths32 != ref["lengths"] or attn_err > NC_ATTN_TOL:
+        fail(f"noncausal_1x: f32 tokens of {f32_equal} of {len(ref['idx'])} segments equal the "
+             f"JAX CPU reference's, lengths equal {lengths32 == ref['lengths']}, attn "
+             f"{attn_err} (> {NC_ATTN_TOL}?)")
+    for dtype_name, rec in sharded.items():
+        for devs in SHARD_DEVICES:
+            key = f"{len(devs)}_shards"
+            beam, sm = rec["beam"][key], rec["sm"][key]
+            if beam["k2_launches"] != len(devs) or sm["k2_launches"] != len(devs) or \
+                    sm["k1_launches"]:
+                fail(f"noncausal_1x: sharded {dtype_name} {key}: K2 {beam['k2_launches']} / "
+                     f"{sm['k2_launches']} launches, expected one a part; K1 {sm['k1_launches']}")
+            if beam["rows_equal"] != len(b0["idx"]) or sm["episodes_equal"] != len(wavs):
+                fail(f"noncausal_1x: sharded {dtype_name} {key}: {beam['rows_equal']} of "
+                     f"{len(b0['idx'])} beam rows and {sm['episodes_equal']} of {len(wavs)} "
+                     f"episodes equal the unsharded decode's")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: speaker-embedding export and the contrastive head (embed_1x)
+# ---------------------------------------------------------------------------
+# scripts/embed_chain.sh steps 1-2 on the tracked checkpoint: cli.gen_embed
+# on the test split (f32 against the JAX CLI at its fixture's batch of 16;
+# bf16 at the CLI's default batch 64, K2 at N = 64064 / 54054) and on the
+# train split cut to 8 episodes (bf16, timed; K2 at its batches' rows);
+# cli.train_embed at its defaults on the port's pickles and on the JAX CLI's.
+EMBED_ROWS_TOL = 1e-4                # f32 rows against the JAX CLI's
+EMBED_ARGMAX_SHARE = 0.97            # bf16 posteriors' argmax against the JAX CLI's f32
+EMBED_VALID_ACC_BAND = 0.05          # cli.train_embed's valid accuracy, port vs JAX
+EMBED_LOSS_TOL = 1e-5                # EmbedSystem's first steps against JAX's
+
+
+def run_embed_1x(torch, dev, root, out_dir, card):
+    """The speaker-embedding chain's producer half on the card.
+    (1) `cli.gen_embed` on the test split in f32 at the JAX fixture's
+    batch: the same rows in the same order, the same speaker ids, rows
+    within EMBED_ROWS_TOL. (2) The same in bf16 at the CLI's defaults, as
+    users run it: the posteriors' argmax equal to the JAX CLI's f32 ones on
+    at least EMBED_ARGMAX_SHARE of the rows; K2 once a batch. (3) On the
+    train split cut to 8 episodes (embed_chain.sh step 1), bf16, timed.
+    (4) `cli.train_embed` at its defaults (2000 steps, batch 64, 6-way) on
+    (3)'s pickles, timed; and on the JAX CLI's f32 pickles of the same
+    split, its valid accuracy within EMBED_VALID_ACC_BAND of the JAX CLI's.
+    (5) EmbedSystem from the JAX EmbedSystem's initial parameters on the
+    fixture's episodes: the first steps' losses within EMBED_LOSS_TOL.
+    Returns the record, with each counted run's K2 launches and the audio
+    shapes its batches gave K2."""
+    import tal_asrd_tpu_torch.eval.gen_embed as gen_embed
+    from tal_asrd_tpu_torch.cli import gen_embed as cli_gen_embed
+    from tal_asrd_tpu_torch.cli import train_embed as cli_train_embed
+    from tal_asrd_tpu_torch.data.synth import build_synth_corpus
+    from tal_asrd_tpu_torch.ops.cuda_kernels import fused_logmel_project
+    from tal_asrd_tpu_torch.train.embed_system import (
+        ContrastiveCollator, ContrastiveDataset, EmbedSystem)
+
+    with open(os.path.join(root, EMBED_FIXTURE)) as f:
+        ref = json.load(f)
+    arrays = np.load(os.path.join(root, EMBED_ARRAYS))
+    base = os.path.join(out_dir, "embed")
+    splits = {"card": eval_split_of(out_dir), "train8": os.path.join(base, "train8")}
+    if ref["splits"]["train8"] != TRAIN_CLI_SPLITS["train"]:
+        fail(f"embed_1x: the fixture's train split {ref['splits']['train8']} is not "
+             f"train_cli_1x's {TRAIN_CLI_SPLITS['train']}")
+    t0 = time.perf_counter()
+    build_synth_corpus(splits["train8"], **TRAIN_CLI_SPLITS["train"])
+    split_s = time.perf_counter() - t0
+    real_posteriors = gen_embed.speaker_posteriors
+
+    def export(split, tag, compute_dtype=None, batch=None):
+        """cli.gen_embed.main with the counts set to 0 just before it and
+        read just after; each batch's posteriors at the speaker positions
+        and its audio shape recorded."""
+        probs, shapes = [], []
+
+        def recording(model, audio, audio_lens, text):
+            before = fused_logmel_project.launches
+            out = real_posteriors(model, audio, audio_lens, text)
+            probs.append(out[0][out[1]].cpu().numpy())
+            shapes.append((tuple(audio.shape), fused_logmel_project.launches - before))
+            return out
+
+        argv = ["--train-data", splits[split], "--valid-data", splits[split],
+                "--tokenizer", os.path.join(root, "accuracy_release", "bpe.model"),
+                "--model-type", "1x", "--num-speakers", "8", "--num-workers", "0",
+                "--load", os.path.join(root, "accuracy_release", "avg_last_3.bf16.msgpack"),
+                "--out-path", os.path.join(base, f"spk_{tag}"), "--device", dev] + (
+                    ["--batch-size", str(batch)] if batch else [])
+        system = cli_gen_embed.ASRSystem
+        gen_embed.speaker_posteriors = recording
+        if compute_dtype is not None:
+            cli_gen_embed.ASRSystem = functools.partial(system, compute_dtype=compute_dtype)
+        try:
+            fused_logmel_project.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rows, ids = cli_gen_embed.main(argv)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            k2 = fused_logmel_project.launches
+        finally:
+            gen_embed.speaker_posteriors = real_posteriors
+            cli_gen_embed.ASRSystem = system
+        return {"rows": rows, "ids": ids, "probs": np.concatenate(probs), "shapes": shapes,
+                "s": secs, "k2_launches": k2, "batches": len(shapes),
+                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+    def train_head(tag, pickles):
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = cli_train_embed.main(["--train-data", pickles + ".train.pkl",
+                                    "--valid-data", pickles + ".valid.pkl",
+                                    "--out", os.path.join(base, f"head_{tag}.msgpack"),
+                                    "--device", dev])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        return {"s": secs, "ms_a_step": 1e3 * secs / len(res["losses"]),
+                "steps": len(res["losses"]), "train_acc": res["train_acc"],
+                "valid_acc": res["valid_acc"], "valid_loss": res["valid_loss"],
+                "loss_first_last": [res["losses"][0], res["losses"][-1]],
+                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+    export("card", "warmup", batch=ref["batch"]["card"])     # cuDNN picks, not counted
+    f32 = export("card", "card_f32", torch.float32, ref["batch"]["card"])
+    bf16 = export("card", "card_bf16")
+    train8 = export("train8", "train8")
+    want_rows, want_ids = arrays["gen_embed/card/rows"], arrays["gen_embed/card/ids"]
+    want_argmax = arrays["gen_embed/card/probs"].argmax(-1)
+    same_rows = len(f32["rows"]) == len(want_rows) and np.array_equal(f32["ids"], want_ids)
+    f32_err = float(np.abs(f32["rows"] - want_rows).max()) if same_rows else float("inf")
+    bf16_same = len(bf16["rows"]) == len(want_rows) and np.array_equal(bf16["ids"], want_ids)
+    argmax_share = (float(np.mean(bf16["probs"].argmax(-1) == want_argmax))
+                    if bf16_same else 0.0)
+
+    port_head = train_head("port", os.path.join(base, "spk_train8"))
+    jax_pickles = os.path.join(base, "jax_train8")
+    gen_embed.save_split(arrays["gen_embed/train8/rows"], arrays["gen_embed/train8/ids"],
+                         jax_pickles)
+    jax_head = train_head("jax_pickles", jax_pickles)
+
+    es = ref["embed_system"]
+    rows, ids = arrays["gen_embed/train8/rows"], arrays["gen_embed/train8/ids"]
+    n_train = ref["gen_embed"]["train8"]["n_train"]
+    ds = ContrastiveDataset(rows[:n_train], ids[:n_train], n_way=es["n_way"],
+                            seed=es["episode_seed"], epoch_len=es["steps"] * es["batch_size"])
+    episodes = [ContrastiveCollator()([ds[i * es["batch_size"] + j]
+                                       for j in range(es["batch_size"])])
+                for i in range(es["steps"])]
+    init = {}
+    for key in arrays.files:
+        if key.startswith("embed_system/init/"):
+            _, _, layer, leaf = key.split("/")
+            init.setdefault(layer, {})[leaf] = arrays[key]
+    losses, accs = EmbedSystem(batch_size=es["batch_size"], params=init, device=dev).fit(
+        iter(episodes))
+    loss_err = float(np.abs(np.asarray(losses) - es["losses"]).max())
+
+    def summary(r):
+        by_shape = {}
+        for shape, n in r["shapes"]:
+            by_shape[shape] = by_shape.get(shape, 0) + n
+        return {k: r[k] for k in ("s", "k2_launches", "batches", "peak_memory_gb")} | {
+            "rows": len(r["rows"]), "k2_launches_by_shape": {
+                f"{b}x{t}": n for (b, t), n in sorted(by_shape.items())}}
+
+    out = {"phase": "embed_1x", "card": card, "train8_split_s": split_s,
+           "gen_embed": {"card_f32": summary(f32), "card_bf16": summary(bf16),
+                         "train8_bf16": summary(train8)},
+           "f32_vs_jax": {"rows": len(f32["rows"]), "jax_rows": len(want_rows),
+                          "ids_equal": same_rows, "max_abs_err": f32_err,
+                          "tolerance": EMBED_ROWS_TOL},
+           "bf16_vs_jax_f32": {"ids_equal": bf16_same, "argmax_equal_share": argmax_share,
+                               "min_share": EMBED_ARGMAX_SHARE},
+           "train_embed": {"port_pickles": port_head, "jax_pickles": jax_head,
+                           "jax_cli_on_jax_pickles": {k: ref["train_embed"][k] for k in (
+                               "train_acc", "valid_acc")}},
+           "embed_system_vs_jax": {"steps": len(losses), "loss_max_abs_err": loss_err,
+                                   "accs_equal": list(accs) == list(es["accs"]),
+                                   "tolerance": EMBED_LOSS_TOL}}
+    emit(out)
+    if not same_rows or f32_err > EMBED_ROWS_TOL:
+        fail(f"embed_1x: f32 rows {len(f32['rows'])} (JAX {len(want_rows)}), ids equal "
+             f"{same_rows}, max error {f32_err} (> {EMBED_ROWS_TOL}?)")
+    if argmax_share < EMBED_ARGMAX_SHARE:
+        fail(f"embed_1x: bf16 argmax equal on {argmax_share} of the rows (ids equal "
+             f"{bf16_same}), < {EMBED_ARGMAX_SHARE}")
+    for name, r in (("card_f32", f32), ("card_bf16", bf16), ("train8", train8)):
+        if r["k2_launches"] != r["batches"] or r["batches"] < 1:
+            fail(f"embed_1x: {name}: K2 launched {r['k2_launches']} times for "
+                 f"{r['batches']} batches")
+    if abs(jax_head["valid_acc"] - ref["train_embed"]["valid_acc"]) > EMBED_VALID_ACC_BAND:
+        fail(f"embed_1x: valid accuracy {jax_head['valid_acc']} on the JAX CLI's pickles, "
+             f"the JAX CLI's {ref['train_embed']['valid_acc']} (band {EMBED_VALID_ACC_BAND})")
+    if loss_err > EMBED_LOSS_TOL or not out["embed_system_vs_jax"]["accs_equal"]:
+        fail(f"embed_1x: EmbedSystem's first {len(losses)} losses {loss_err} from JAX's "
+             f"(> {EMBED_LOSS_TOL}?), accuracies equal {out['embed_system_vs_jax']['accs_equal']}")
+    return out
+
+
+def noncausal_entries(nc, k2_eval, k2_beam_part, k2_sm_part):
+    """The non-causal phase's kernels, each with its launches in one run: K2
+    in the main run (N = 64064 / 54054) and in the two-shard bf16 runs
+    (the whole batch on the first part's device and a part, N = 32032 beam,
+    36002 state machine, on the other; held here at the part's N, the
+    whole batch's N by eval_aligned_1x and eval_unaligned_1x). K1 is
+    launched no time
+    (run_noncausal_1x gates the zero)."""
+    two = nc["sharded"]["bf16"]
+    return [
+        kernel_entry("noncausal_1x:main", k2_eval, nc["launches"]["fused_logmel_project"],
+                     k2_eval["max_abs_err"]),
+        kernel_entry("noncausal_1x:sharded_beam:2_shards", k2_beam_part,
+                     two["beam"]["2_shards"]["k2_launches"], k2_beam_part["max_abs_err"]),
+        kernel_entry("noncausal_1x:sharded_sm:2_shards", k2_sm_part,
+                     two["sm"]["2_shards"]["k2_launches"], k2_sm_part["max_abs_err"])]
+
+
+def embed_entries(em, k2_eval, k2_train8):
+    """The embedding chain's kernels: K2 in the bf16 test-split export (N =
+    64064 / 54054) and in the train-split export, by batch shape
+    (`k2_train8`: "BxT" -> its record), each with the launches its batches
+    made (read off the counter around each batch)."""
+    g = em["gen_embed"]
+    return [kernel_entry("embed_1x:gen_embed:test", k2_eval, g["card_bf16"]["k2_launches"],
+                         k2_eval["max_abs_err"])] + [
+        kernel_entry(f"embed_1x:gen_embed:train8:{shape}", k2_train8[shape], n,
+                     k2_train8[shape]["max_abs_err"])
+        for shape, n in g["train8_bf16"]["k2_launches_by_shape"].items()]
+
+
 def kernel_entry(config, rec, launches_n, err, mode=None):
     """One record of the `kernels` line."""
     return {"name": rec["name"], "mode": mode or rec.get("mode", "none"),
@@ -3003,13 +3552,15 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default="all",
                     choices=("all", "kernels", "train", "eval", "unaligned", "train_cli",
-                             "lm", "spk"),
+                             "lm", "spk", "noncausal", "embed"),
                     help="'kernels' stops after the build and the kernel checks; "
                          "'train' skips the serving and eval phases; 'eval' runs "
                          "eval_aligned_1x after the kernel checks, nothing else; "
                          "'unaligned' runs eval_unaligned_1x after them; "
                          "'train_cli' runs train_cli_1x after them; 'lm' runs "
-                         "lm_fusion_1x after them; 'spk' runs spk_head_1x after them")
+                         "lm_fusion_1x after them; 'spk' runs spk_head_1x after them; "
+                         "'noncausal' runs noncausal_1x after them; 'embed' runs "
+                         "embed_1x after them")
     ap.add_argument("--profile", action="store_true",
                     help="also trace one fused greedy generate per model, each eval "
                          "CLI run, one 2x training step, the training CLI's second "
@@ -3201,6 +3752,24 @@ def main() -> None:
         entries += spk_entries(run_spk_head_1x(torch, dev, root, out_dir, card,
                                                trace=args.profile), k2_eval, k2_long)
     if args.phases == "spk":
+        shutil.rmtree(out_dir, ignore_errors=True)
+        finish(torch, entries, card, t_start)
+        return
+    # ---- 10. the non-causal reference decode and the sharded decode -------------
+    if args.phases in ("all", "noncausal"):
+        nc = run_noncausal_1x(torch, dev, root, out_dir, card)
+        # K2 at the parts' rows: half the first batch, half the 4 episodes
+        k2_beam_part = check_logmel(torch, dev, 32, EVAL_SAMPLES)
+        k2_sm_part = check_logmel(torch, dev, SM_GROUP // 2, SM_EPISODE_SAMPLES)
+        entries += noncausal_entries(nc, k2_eval, k2_beam_part, k2_sm_part)
+    # ---- 11. speaker-embedding export and the contrastive head -------------------
+    if args.phases in ("all", "embed"):
+        em = run_embed_1x(torch, dev, root, out_dir, card)
+        # K2 at every batch shape of the train-split export
+        k2_train8 = {shape: check_logmel(torch, dev, *map(int, shape.split("x")))
+                     for shape in em["gen_embed"]["train8_bf16"]["k2_launches_by_shape"]}
+        entries += embed_entries(em, k2_eval, k2_train8)
+    if args.phases in ("noncausal", "embed"):
         shutil.rmtree(out_dir, ignore_errors=True)
         finish(torch, entries, card, t_start)
         return

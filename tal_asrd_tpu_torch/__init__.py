@@ -7,9 +7,13 @@ imports torch, numpy and scipy only.
 
 Ported so far: the serving path (log-mel frontend, TDS encoder, ReZero
 decoder, fused decode steps, beam search), the training path (ASRSystem,
-LAMB, Trainer, checkpoints), and the aligned evaluation (tokenizer, data
-pipeline, EvalRunner, WER / WDER, `python -m tal_asrd_tpu_torch.cli.test`),
-with four hand-written CUDA kernels (ops/cuda_*.py; sources in csrc/).
+LAMB, Trainer, checkpoints), the aligned and long-form evaluation
+(tokenizer, data pipeline, EvalRunner, the state machine, VAD, WER / WDER,
+`python -m tal_asrd_tpu_torch.cli.test`), the training CLI, LM shallow
+fusion, the separate speaker head, the non-causal reference decode and the
+sharded decode, and the speaker-embedding export and metric head
+(`cli.gen_embed`, `cli.train_embed`), with four hand-written CUDA kernels
+(ops/cuda_*.py; sources in csrc/).
 Every entry point takes `device`, which defaults to "cuda".
 """
 

@@ -23,10 +23,10 @@ from glob import glob
 from typing import List, Optional
 
 UNPORTED = {
-    "convert-audio": "A16 (the rest of cli/tools.py)",
-    "merge-outputs": "A16 (eval/tools.py)",
-    "librispeech-format": "A16 (the rest of cli/tools.py)",
-    "wder-format": "A16 (the SD-feature and word-level cases of eval/convert.py)",
+    "convert-audio": "A16.2 (the rest of cli/tools.py)",
+    "merge-outputs": "A16.2 (eval/tools.py)",
+    "librispeech-format": "A16.2 (the rest of cli/tools.py)",
+    "wder-format": "A16.2 (the SD-feature and word-level cases of eval/convert.py)",
     "diar-features": "A17 (diarization features)",
     "synth-sad-stress": "A18 (build_sad_stress_corpus)",
 }

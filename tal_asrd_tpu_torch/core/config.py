@@ -156,10 +156,12 @@ class TrainConfig:
 
 @dataclass(frozen=True)
 class DecodeConfig:
-    """Decoding knobs, the reference's fields. The non-causal reference
-    mode (ROADMAP A11) is not ported yet: `self_attn_mode` is accepted at
-    its default only, and any other value raises NotImplementedError naming
-    the item."""
+    """Decoding knobs, the reference's fields. A field whose path is not
+    ported yet is listed in `_UNPORTED_DECODE_FIELDS` (none at present):
+    it is accepted at its default only, and any other value raises
+    NotImplementedError naming its ROADMAP item. `self_attn_mode` is read
+    by no runner, as in the reference: the non-causal reference decode is
+    `decode/reference_mode.py::greedy_noncausal`, called directly."""
 
     beam_size: int = 5
     max_length: int = 512
@@ -176,8 +178,8 @@ class DecodeConfig:
     history_evict_block: int = 64
     eos_advance: bool = False
     stall_rollback: bool = False
-    # 'causal': KV-cached causal decoding; 'noncausal_ref', the reference's
-    # bidirectional prefix re-encode per step, is ROADMAP A11.
+    # 'causal': KV-cached causal decoding; 'noncausal_ref': the reference's
+    # bidirectional prefix re-encode per step (decode/reference_mode.py).
     self_attn_mode: str = "causal"
     # Run per-token decode steps through the fused layer-step kernel
     # (ops/cuda_decode.py) — speaker-token models only.
@@ -193,6 +195,4 @@ class DecodeConfig:
 
 
 # Fields read only by paths not ported yet, and the ROADMAP item of each path.
-_UNPORTED_DECODE_FIELDS = {
-    "self_attn_mode": "A11 (the non-causal reference mode)",
-}
+_UNPORTED_DECODE_FIELDS: dict = {}

@@ -11,7 +11,7 @@ test_result.pkl entries — ref utterance dicts, hyp dicts with 'utterance',
 `score_test_result` is the non-clustered path of
 tal_asrd_tpu/cli/wder.py (punkt word tokens): convert, then corpus WER and
 WDER. The unaligned runs' attention-windowed embeddings (SD features) and the
-clustering of embeddings belong to the embedding chain (ROADMAP A16).
+clustering of embeddings belong to the embedding chain (ROADMAP A16.2).
 """
 from __future__ import annotations
 

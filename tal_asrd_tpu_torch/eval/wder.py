@@ -1,7 +1,7 @@
 """WER / WDER metric core.
 
 Counterpart of tal_asrd_tpu/eval/wder.py, without the clustering of speaker
-embeddings (the embedding chain, ROADMAP A16):
+embeddings (the embedding chain's clustering half, ROADMAP A16.2):
   * compute_sequence_match: count matrix + Hungarian assignment (scipy's
     linear_sum_assignment), the optimal speaker-label matching accuracy
     between two equal-length label sequences;

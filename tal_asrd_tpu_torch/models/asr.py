@@ -46,12 +46,13 @@ from tal_asrd_tpu_torch.models.decoder import (
 )
 from tal_asrd_tpu_torch.models.layers import Linear, lecun_normal_
 from tal_asrd_tpu_torch.models.tds import TDS
-from tal_asrd_tpu_torch.ops.logmel import log_mel_spectrogram
+from tal_asrd_tpu_torch.ops.logmel import batch_mean, log_mel_spectrogram
 from tal_asrd_tpu_torch.ops.specaug import spec_augment_seeded
 
 
 def encoder_padding_mask(audio_lens: torch.Tensor, max_audio_len: int,
-                         enc_t: int, mode: str = "buffer") -> torch.Tensor:
+                         enc_t: int, mode: str = "buffer",
+                         batch_max_len: Optional[int] = None) -> torch.Tensor:
     """[B] sample lengths -> [B, enc_t] bool mask, True = padding.
 
     mode='buffer' (default): integer-division scaling
@@ -60,9 +61,12 @@ def encoder_padding_mask(audio_lens: torch.Tensor, max_audio_len: int,
 
     mode='batch_max': the divisor is derived from the BATCH max length, so
     when the longest sample underfills the buffer every sample's scaled
-    length grows by max_audio_len / batch_max."""
+    length grows by max_audio_len / batch_max. `batch_max_len` gives that
+    length when `audio_lens` is one part of the batch (decode/sharded.py)."""
     if mode == "batch_max":
-        factor = torch.clamp(audio_lens.max() // max(enc_t, 1), min=1)
+        top = audio_lens.max() if batch_max_len is None else torch.tensor(
+            batch_max_len, device=audio_lens.device)
+        factor = torch.clamp(top // max(enc_t, 1), min=1)
     else:
         factor = max(max_audio_len // max(enc_t, 1), 1)
     scaled = audio_lens // factor
@@ -146,21 +150,26 @@ class ASRModel(nn.Module):
     # ------------------------------------------------------------------
     # Encoder side
     # ------------------------------------------------------------------
+    def log_mel(self, audio: torch.Tensor) -> torch.Tensor:
+        """Raw audio [B, T] (float, or int16 PCM scaled here on the device:
+        lossless, and half the host->device transfer) -> the f32 log-mel
+        [B, F, n_mels] before the batch mean is subtracted."""
+        if audio.dtype == torch.int16:
+            audio = audio.to(torch.float32) / 32768.0
+        return log_mel_spectrogram(audio.to(torch.float32), self.frontend, mean_subtract=False)
+
     def extract_features(self, audio: torch.Tensor,
                          audio_lens: Optional[torch.Tensor] = None,
                          train: bool = False,
                          specaug_seeds: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Raw audio [B, T] -> log-mel [B, F, n_mels] in the compute dtype.
-
-        int16 input is accepted and scaled on the device (16-bit PCM at the
-        source, so it is lossless and halves the host->device transfer).
-        audio_lens enables the masked mean (ops/logmel.py). With `train`,
-        SpecAugment zeroes the spans of `specaug_seeds` ([B] int32, on the
-        audio's device) in the f32 log-mel before the cast."""
-        if audio.dtype == torch.int16:
-            audio = audio.to(torch.float32) / 32768.0
-        mel = log_mel_spectrogram(audio.to(torch.float32), self.frontend,
-                                  audio_lens=audio_lens)
+        """Raw audio [B, T] -> log-mel [B, F, n_mels] in the compute dtype:
+        `log_mel` less the batch mean (ops/logmel.py; audio_lens enables the
+        masked mean). With `train`, SpecAugment zeroes the spans of
+        `specaug_seeds` ([B] int32, on the audio's device) in the f32
+        log-mel before the cast."""
+        mel = self.log_mel(audio)
+        if self.frontend.mean_subtract:
+            mel = mel - batch_mean(mel, audio_lens, self.frontend)
         if train:
             if specaug_seeds is None:
                 raise ValueError("train=True needs the SpecAugment seeds")
@@ -169,10 +178,11 @@ class ASRModel(nn.Module):
 
     def encode_features(
         self, feats: torch.Tensor, audio_lens: Optional[torch.Tensor] = None,
-        max_audio_len: Optional[int] = None,
+        max_audio_len: Optional[int] = None, batch_max_len: Optional[int] = None,
     ) -> Dict[str, Any]:
         """Log-mel -> encoder memory dict (`speaker_out`: the speaker head's
-        memory, None without the head)."""
+        memory, None without the head). `batch_max_len`: the whole batch's
+        longest audio when `audio_lens` is a part of it (`encoder_padding_mask`)."""
         h = self.encoder(feats)  # [B, S, C_enc]
         spk_h = self.spk_enc_proj(h) if self.cfg.use_speaker_head else None
         x = self.decoder_proj(h)
@@ -181,7 +191,8 @@ class ASRModel(nn.Module):
             if max_audio_len is None:
                 raise ValueError("audio_lens given without max_audio_len")
             mask = encoder_padding_mask(audio_lens, max_audio_len, x.shape[1],
-                                        mode=self.cfg.pad_mask_mode)
+                                        mode=self.cfg.pad_mask_mode,
+                                        batch_max_len=batch_max_len)
         return {"encoder_out": x, "speaker_out": spk_h,
                 "encoder_padding_mask": mask}
 

@@ -103,15 +103,19 @@ def log_mel_spectrogram(
         spec.reshape(b * f, nf).contiguous(), fb, eps=cfg.log_eps
     ).reshape(b, f, cfg.n_mels)
     do_mean = cfg.mean_subtract if mean_subtract is None else mean_subtract
-    if do_mean:
-        if audio_lens is None:
-            mel = mel - mel.mean()
-        else:
-            # Real frames of item i: centers at k*hop for k <= len_i // hop
-            # (center=True reflect pad keeps frame k anchored at sample k*hop).
-            frame_idx = torch.arange(f, device=mel.device)[None, :]
-            real = frame_idx <= (audio_lens.to(mel.device)[:, None] // cfg.hop_length)
-            denom = real.sum().clamp(min=1) * mel.shape[-1]
-            mean = (mel * real[..., None]).sum(dtype=torch.float32) / denom
-            mel = mel - mean.to(mel.dtype)
-    return mel
+    return mel - batch_mean(mel, audio_lens, cfg) if do_mean else mel
+
+
+def batch_mean(mel: torch.Tensor, audio_lens: Optional[torch.Tensor] = None,
+               cfg: FrontendConfig = FrontendConfig()) -> torch.Tensor:
+    """The one mean over the whole batch of a log-mel [B, F, n_mels], a
+    scalar tensor: over the real frames with `audio_lens`, else over every
+    frame."""
+    if audio_lens is None:
+        return mel.mean()
+    # Real frames of item i: centers at k*hop for k <= len_i // hop
+    # (center=True reflect pad keeps frame k anchored at sample k*hop).
+    frame_idx = torch.arange(mel.shape[1], device=mel.device)[None, :]
+    real = frame_idx <= (audio_lens.to(mel.device)[:, None] // cfg.hop_length)
+    denom = real.sum().clamp(min=1) * mel.shape[-1]
+    return (mel * real[..., None]).sum(dtype=torch.float32) / denom

@@ -144,10 +144,18 @@ def test_convert_and_score_test_result_match_jax(tmp_path):
 @pytest.mark.parametrize("field,value,item", [
     ("lm_weight", 0.5, "A14"), ("chunk_size", 340, "A9"), ("history_evict_block", 1, "A9"),
     ("eos_advance", True, "A9"), ("self_attn_mode", "noncausal_ref", "A11")])
-def test_decode_config_refuses_what_is_not_ported(field, value, item):
-    """The non-causal mode (A11) is refused; LM fusion's weight (A14) and the
-    state machine's fields (A9), both ported, are accepted at any value, each
-    of them."""
+def test_decode_config_refuses_what_is_not_ported(field, value, item, tmp_path):
+    """Nothing is refused any more: LM fusion's weight (A14) and the state
+    machine's fields (A9) are accepted at any value, each of them; the
+    non-causal mode (A11) is accepted and, as in the JAX package, read by no
+    runner: the eval runner's outputs on a tiny model are the same with it
+    (its decode is decode/reference_mode.py, called directly)."""
+    if item == "A11":
+        assert DecodeConfig(**{field: value}).self_attn_mode == value
+        causal, noncausal = (tiny_runner_outputs(tmp_path / mode, DecodeConfig(
+            beam_size=2, **{field: mode})) for mode in ("causal", value))
+        assert causal == noncausal and len(causal) == 2
+        return
     if item == "A14":
         assert DecodeConfig(lm_weight=value).lm_weight == value
     elif item == "A9":
@@ -157,10 +165,41 @@ def test_decode_config_refuses_what_is_not_ported(field, value, item):
                      eos_advance=True, stall_rollback=True)
         cfg = DecodeConfig(**every)
         assert {k: getattr(cfg, k) for k in every} == every
-    else:
-        with pytest.raises(NotImplementedError, match=item):
-            DecodeConfig(**{field: value})
     assert DecodeConfig(beam_size=3, use_fused_decode=True).beam_size == 3
+
+
+def tiny_runner_outputs(root, decode_cfg):
+    """EvalRunner's aligned step on a tiny speaker-token model (seeded,
+    ReZero scalars 0.4) over a 20 s split's segments in one batch: the
+    step's tokens, lengths and scores and test_result.pkl, as bytes."""
+    from tal_asrd_tpu_torch.core.config import ModelConfig
+    from tal_asrd_tpu_torch.core.convert import load_into, params_spec
+    from tal_asrd_tpu_torch.data.aligned import AlignedDataset
+    from tal_asrd_tpu_torch.data.collate import BucketedCollater
+    from tal_asrd_tpu_torch.data.loader import DataLoader
+    from tal_asrd_tpu_torch.data.synth import build_synth_corpus
+    from tal_asrd_tpu_torch.eval.runner import EvalRunner
+    from tal_asrd_tpu_torch.models.asr import ASRModel
+    from tal_asrd_tpu_torch.text.bpe import BpeTokenizer
+    from tests.test_torch_helpers import seeded_params
+    split, out = str(root / "split"), str(root / "out")
+    build_synth_corpus(split, n_episodes=1, episode_seconds=20.0, n_speakers=8, seed=202)
+    tok = BpeTokenizer(model_path=BPE)
+    model = ASRModel(ModelConfig(model_type="1x", num_speakers=8, vocab_size=len(tok),
+                                 n_head=2, tds_depths=(1, 1, 1), width_mult=0.1,
+                                 d_decoder_override=32), device="cpu")
+    load_into(model, {"params": seeded_params(params_spec(model), 2)})
+    ds = AlignedDataset(split, tok, num_utterances=1, min_segment_duration=3,
+                        max_segment_duration=20,
+                        speaker_map_loc=os.path.join(split, "speaker_map.json"),
+                        tokenizer_speakers=True, return_spk_ids=True)
+    batch = next(iter(DataLoader(ds, 8, BucketedCollater(tok.pad_token_id), num_workers=0,
+                                 drop_last=False)))
+    runner = EvalRunner(model, tok, decode_cfg, out_dir=out, device="cpu")
+    step = runner.test_step_aligned(batch, [ds.index[int(i)][1] for i in batch["idx"]])
+    with open(os.path.join(out, "test_result.pkl"), "rb") as f:
+        written = f.read()
+    return [[step[k].tolist() for k in ("tokens", "lengths", "scores")], written]
 
 
 CLI_BASE = ["--tokenizer", BPE, "--model-type", "1x", "--num-speakers", "8",

@@ -81,6 +81,24 @@ def test_the_lm_modules_are_among_the_checked_ones():
             "tal_asrd_tpu_torch.cli.train_lm"} <= mods
 
 
+def test_the_reference_decode_and_embedding_modules_are_among_the_checked_ones():
+    mods = set(_port_modules())
+    assert {"tal_asrd_tpu_torch.decode.reference_mode", "tal_asrd_tpu_torch.decode.sharded",
+            "tal_asrd_tpu_torch.eval.gen_embed", "tal_asrd_tpu_torch.cli.gen_embed",
+            "tal_asrd_tpu_torch.train.embed_system", "tal_asrd_tpu_torch.cli.train_embed",
+            "tal_asrd_tpu_torch.data.audio"} <= mods
+    import tal_asrd_tpu_torch.data as data
+    import tal_asrd_tpu_torch.decode as decode
+    import tal_asrd_tpu_torch.eval as eval_pkg
+    import tal_asrd_tpu_torch.train as train
+    for pkg, names in ((decode, ("greedy_noncausal", "make_sharded_decode",
+                                 "make_sharded_unaligned")),
+                       (eval_pkg, ("generate_speaker_embeddings", "save_split")),
+                       (train, ("ContrastiveCollator", "ContrastiveDataset", "EmbedSystem")),
+                       (data, ("RandomSegmentDataset",))):
+        assert set(names) <= set(pkg.__all__) and all(hasattr(pkg, n) for n in pkg.__all__)
+
+
 def test_the_speaker_head_reference_script_builds_its_tree_with_numpy_alone():
     """scripts/torch_spk_reference.py's `seeded_spk_tree` (chip_smoke.py
     rebuilds the speaker-head tree with it on the card) imports numpy only:
@@ -113,8 +131,10 @@ def test_the_speaker_head_reference_script_builds_its_tree_with_numpy_alone():
 @pytest.mark.parametrize("target", ["ASRModel", "make_generate_fn", "ASRSystem",
                                     "EvalRunner", "cli.test", "Transcriber",
                                     "cli.transcribe", "cli.vad", "cli.train",
-                                    "cli.train_lm", "DecoderLMModel", "LMSystem"])
+                                    "cli.train_lm", "DecoderLMModel", "LMSystem",
+                                    "cli.gen_embed", "cli.train_embed", "EmbedSystem"])
 def test_entry_points_default_to_cuda(target):
+    from tal_asrd_tpu_torch.cli import train_embed as cli_train_embed
     from tal_asrd_tpu_torch.cli import transcribe as cli_transcribe
     from tal_asrd_tpu_torch.cli import vad as cli_vad
     from tal_asrd_tpu_torch.cli.args import get_argparser, get_lm_argparser
@@ -123,6 +143,7 @@ def test_entry_points_default_to_cuda(target):
     from tal_asrd_tpu_torch.eval.runner import EvalRunner
     from tal_asrd_tpu_torch.models.asr import ASRModel
     from tal_asrd_tpu_torch.models.lm import DecoderLMModel
+    from tal_asrd_tpu_torch.train.embed_system import EmbedSystem
     from tal_asrd_tpu_torch.train.lm_system import LMSystem
     from tal_asrd_tpu_torch.train.system import ASRSystem
     parsers = {  # python -m tal_asrd_tpu_torch.cli.<name>: --device
@@ -136,6 +157,11 @@ def test_entry_points_default_to_cuda(target):
                        "--model-type", "1x", "--name", "n"]),
         "cli.train_lm": (get_lm_argparser, ["--train-data", "d", "--valid-data", "d",
                                             "--tokenizer", "t", "--name", "n"]),
+        # cli.gen_embed: the eval CLI's parser plus --out-path
+        "cli.gen_embed": (get_argparser, ["--train-data", "d", "--valid-data", "d",
+                                          "--tokenizer", "t", "--model-type", "1x"]),
+        "cli.train_embed": (cli_train_embed.get_parser, ["--train-data", "t.pkl",
+                                                         "--valid-data", "v.pkl"]),
     }
     if target in parsers:
         make, argv = parsers[target]
@@ -144,7 +170,7 @@ def test_entry_points_default_to_cuda(target):
     fn = {"ASRModel": ASRModel.__init__, "make_generate_fn": make_generate_fn,
           "ASRSystem": ASRSystem.__init__, "EvalRunner": EvalRunner.__init__,
           "Transcriber": Transcriber.__init__, "DecoderLMModel": DecoderLMModel.__init__,
-          "LMSystem": LMSystem.__init__}[target]
+          "LMSystem": LMSystem.__init__, "EmbedSystem": EmbedSystem.__init__}[target]
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
