@@ -11,6 +11,7 @@
     python3 chip_smoke.py --phases spk       # ... + the separate speaker head only
     python3 chip_smoke.py --phases noncausal # ... + the non-causal and sharded decode only
     python3 chip_smoke.py --phases embed     # ... + the speaker-embedding chain only
+    python3 chip_smoke.py --phases cluster   # ... + the embedding chain's clustering half only
 
 Builds the port's CUDA kernels from tal_asrd_tpu_torch/csrc/ with nvcc, holds
 each against its plain PyTorch version on the card at the shapes its paths
@@ -94,6 +95,17 @@ CLI's rows and in bf16 as users run it, and on the train split cut to 8
 episodes; `python -m tal_asrd_tpu_torch.cli.train_embed` at its defaults on
 the port's pickles and on the JAX CLI's, against its valid accuracy.
 
+Then the embedding chain's clustering half (`cluster_1x`, `--phases
+cluster`, scripts/embed_chain.sh step 3): the eval CLI aligned with
+--fused-decode (K2, K1), `cli.tools wder-format`, the metric head, and
+`python -m tal_asrd_tpu_torch.cli.wder --cluster` (agglomerative, cos_dist)
+raw and through the head; then the engines at the chain's size: every
+parameter set of the WDER grid and cli.wder's methods and metrics on the
+JAX CLI's rows of the test split, one segment an episode, raw and through
+the JAX CLI's head (the distances and the head on the card), against the
+JAX CPU reference tests/fixtures/torch_cluster_reference.json, and
+`cli.wder_search`'s TSV against the JAX CLI's.
+
 Then it runs the training CLI (`train_cli_1x`): `python -m
 tal_asrd_tpu_torch.cli.train`'s `main` at scripts/accuracy.sh's last
 phase's flags (B = 16, --max-secs 28.5, --shiftaug --cache-items
@@ -110,7 +122,7 @@ K4 at [16, 3001, 80], both on int16 audio.
 Prints one JSON object per line: `device`, one `kernel` line per check,
 `k3_vs_k1_chain`, `k1_determinism`, `k3_determinism`, `kernel_timing`, one `serve_*` line per configuration,
 `eval_aligned_1x`, `prefill_handoff`, `eval_unaligned_1x`, `lm_fusion_1x`, `spk_head_1x`,
-`noncausal_1x`, `embed_1x`, `train_2x`, `train_1x_checkpoint`, `train_cli_1x`, `kernels` (every kernel of each path with
+`noncausal_1x`, `embed_1x`, `cluster_1x`, `train_2x`, `train_1x_checkpoint`, `train_cli_1x`, `kernels` (every kernel of each path with
 its launch count in that path's one timed run, its error against the plain
 version, its time, the plain version's, a library call's where one exists,
 and the least time the card could take), and last
@@ -127,6 +139,7 @@ import dataclasses
 import functools
 import json
 import os
+import pickle
 import shutil
 import subprocess
 import sys
@@ -3416,6 +3429,363 @@ def run_embed_1x(torch, dev, root, out_dir, card):
     return out
 
 
+CLUSTER_FIXTURE = os.path.join("tests", "fixtures", "torch_cluster_reference.json")
+CLUSTER_ARRAYS = os.path.join("tests", "fixtures", "torch_cluster_reference_arrays.npz")
+CLUSTER_TIE_GAP = 1e-6               # a parting is a near-tie if the inputs differ by less
+CLUSTER_HEAD_TOL = 1e-5              # the head's images on the card against the JAX CLI's
+
+
+def same_partition(a, b) -> bool:
+    """Equal label lists up to renumbering."""
+    pairs = {}
+    for x, y in zip(a, b):
+        if pairs.setdefault(x, y) != y:
+            return False
+    return len(a) == len(b) and len(set(a)) == len(set(b))
+
+
+def run_cluster_1x(torch, dev, root, out_dir, card):
+    """The embedding chain's clustering half on the card
+    (scripts/embed_chain.sh step 3). (a) The chain: the eval CLI aligned,
+    --fused-decode, bf16 (K2, K1; the counts set to 0 just before it and
+    read just after), `cli.tools wder-format`, the metric head (embed_1x's
+    where that phase ran, else `cli.gen_embed` on the train split cut to 8
+    episodes and `cli.train_embed` at their defaults), `cli.wder --cluster
+    --cluster-method agglomerative --metric cos_dist` raw and with
+    --embed-head. On the aligned split each segment holds one reference
+    utterance, so (a) checks the path, not the engines. (b) The engines at
+    the chain's real size on the JAX CLI's rows of the test split
+    (CLUSTER_FIXTURE): every parameter set of default_param_grid() and
+    cli.wder's four methods x five metrics on each episode, raw and through
+    the JAX CLI's head on the card, against JAX's partitions. A parting
+    passes only with a witness: the port given JAX's inputs (XLA's cosine
+    matrix, the JAX CLI's head images) gives JAX's labels and the inputs
+    differ by less than CLUSTER_TIE_GAP; or, for the Bayesian GMM, the same
+    input and k-means labels, a JAX fit that did not converge and a first
+    lower bound within CLUSTER_TIE_GAP (relative) of JAX's: the host's
+    rounding amplified by the steps (ROADMAP C23). Then the port's
+    cli.wder_search TSV against the JAX CLI's and the chain's -wder.pkl
+    fields."""
+    import tal_asrd_tpu_torch.eval.clustering as clustering
+    import tal_asrd_tpu_torch.eval.engines as engines
+    import tal_asrd_tpu_torch.eval.wder_search as wder_search
+    from tal_asrd_tpu_torch.cli import gen_embed as cli_gen_embed
+    from tal_asrd_tpu_torch.cli import tools as cli_tools
+    from tal_asrd_tpu_torch.cli import train_embed as cli_train_embed
+    from tal_asrd_tpu_torch.cli import wder as cli_wder
+    from tal_asrd_tpu_torch.cli import wder_search as cli_wder_search
+    from tal_asrd_tpu_torch.core.checkpoint import save_pytree
+    from tal_asrd_tpu_torch.data.synth import build_synth_corpus
+    from tal_asrd_tpu_torch.ops.cuda_decode import fused_layer_step
+    from tal_asrd_tpu_torch.ops.cuda_kernels import fused_logmel_project
+
+    ref = reference_script(root, "torch_cluster_reference")
+    with open(os.path.join(root, CLUSTER_FIXTURE)) as f:
+        fx = json.load(f)
+    arrays = np.load(os.path.join(root, CLUSTER_ARRAYS))
+    base = os.path.join(out_dir, "cluster")
+    os.makedirs(base, exist_ok=True)
+    bpe = os.path.join(root, "accuracy_release", "bpe.model")
+    ckpt = os.path.join(root, "accuracy_release", "avg_last_3.bf16.msgpack")
+
+    # ---- (a) the chain ------------------------------------------------------------
+    split = eval_split_of(out_dir)
+    counters = {"fused_layer_step": fused_layer_step,
+                "fused_logmel_project": fused_logmel_project}
+    argv = ["--train-data", split, "--valid-data", split, "--test-data", split,
+            "--tokenizer", bpe, "--model-type", "1x", "--num-speakers", "8", "--load", ckpt,
+            "--out-dir", os.path.join(base, "eval"), "--fused-decode", "--device", dev]
+    _, eval_s, rec = run_eval_counted(torch, argv, counters)
+    ready = os.path.join(base, "wder_ready_aligned.pkl")
+    cli_tools.main(["wder-format", "--test-result", os.path.join(base, "eval", "test_result.pkl"),
+                    "--out", ready, "--device", dev])
+    head = os.path.join(out_dir, "embed", "head_port.msgpack")
+    head_from = "embed_1x"
+    if not os.path.exists(head):
+        head_from = "this phase: cli.gen_embed (train split cut to 8 episodes) + cli.train_embed"
+        train8 = os.path.join(base, "train8")
+        build_synth_corpus(train8, **TRAIN_CLI_SPLITS["train"])
+        cli_gen_embed.main(["--train-data", train8, "--valid-data", train8, "--tokenizer", bpe,
+                            "--model-type", "1x", "--num-speakers", "8", "--num-workers", "0",
+                            "--load", ckpt, "--out-path", os.path.join(base, "spk"),
+                            "--device", dev])
+        head = os.path.join(base, "embed_head.msgpack")
+        cli_train_embed.main(["--train-data", os.path.join(base, "spk.train.pkl"),
+                              "--valid-data", os.path.join(base, "spk.valid.pkl"),
+                              "--out", head, "--device", dev])
+    chain = {}
+    for tag, extra in (("raw", []), ("head", ["--embed-head", head])):
+        t0 = time.perf_counter()
+        fields = cli_wder.main(["--eval-file", ready, "--workers", "1", "--cluster",
+                                "--cluster-method", "agglomerative", "--metric", "cos_dist",
+                                "--device", dev] + extra)
+        chain[tag] = {"wder_pct": 100 * fields["overall_wder"],
+                      "wer_pct": 100 * fields["overall_wer"], "s": time.perf_counter() - t0}
+
+    # ---- (b) the engines at the chain's real size ----------------------------------------
+    jax_head = os.path.join(base, "jax_head.msgpack")
+    save_pytree(jax_head, ref.head_tree(arrays))
+    raw = ref.paired_results(fx, arrays)
+    mapped = wder_search.apply_embed_head(raw, jax_head, dev)
+    head_rows = np.stack([e for _, hyps in mapped for _, (e, _), _ in hyps])
+    want_rows = np.stack([arrays["head_rows"][u["row"]] for seg in fx["segments"] for u in seg])
+    head_err = float(np.abs(head_rows - want_rows).max())
+    inputs = {"raw": raw, "head": mapped}
+    jax_inputs = {"raw": raw, "head": ref.paired_results(fx, arrays, head=True)}
+
+    real_cos = clustering.cosine_distance_matrix
+    seen = {}
+
+    def recording_cos(x, device="cuda"):
+        d = real_cos(x, device)
+        seen[x.shape[1]] = d
+        return d
+
+    def witness(call, variant, seg, dims):
+        """Rerun `call` (from the same draws) with JAX's inputs: XLA's cosine
+        matrix and the JAX CLI's head images. Returns (labels, input gap)."""
+        jax_d = arrays[f"cos/{variant}/seg{seg}/d{dims}"] if \
+            f"cos/{variant}/seg{seg}/d{dims}" in arrays.files else None
+        gaps = []
+        if jax_d is not None and dims in seen:
+            gaps.append(float(np.abs(seen[dims] - jax_d).max()))
+        if variant == "head":
+            gaps.append(head_err)
+        clustering.cosine_distance_matrix = (lambda x, device="cuda": jax_d) \
+            if jax_d is not None else real_cos
+        try:
+            got = call()
+        except ValueError as e:
+            got = f"ValueError: {e}"
+        finally:
+            clustering.cosine_distance_matrix = recording_cos
+        return got, max(gaps) if gaps else float("inf")
+
+    def held(variant, seg, name, got, want, rerun, dims):
+        """One comparison: equal, witnessed near-tie, or a failure."""
+        if isinstance(got, str) or isinstance(want, str):
+            ok = got == want
+        else:
+            ok = same_partition(got, want)
+        if ok:
+            return None
+        if name.startswith("('gmm'"):
+            return {"variant": variant, "segment": seg, "set": name, "witnessed": False,
+                    "port": str(got)[:200], "jax": str(want)[:200]}
+        again, gap = witness(rerun, variant, seg, dims)
+        tie = (again == want if isinstance(want, str) else
+               not isinstance(again, str) and same_partition(again, want)) and \
+            gap < CLUSTER_TIE_GAP
+        return {"variant": variant, "segment": seg, "set": name, "gap": gap,
+                "witnessed": bool(tie), "port": str(got)[:200], "jax": str(want)[:200]}
+
+    # of every Bayesian GMM: its input, its k-means labels, its lower bounds
+    real_gmm, real_km, real_lb = engines.bayesian_gmm, engines.kmeans_labels, \
+        engines._gmm_lower_bound
+    fit = {}
+
+    def recording_gmm(x, *a, **k):
+        fit.update(x=np.array(x), lb=[])
+        return real_gmm(x, *a, **k)
+
+    def recording_km(*a, **k):
+        fit["km"] = real_km(*a, **k)
+        return fit["km"]
+
+    def recording_lb(*a, **k):
+        fit["lb"].append(real_lb(*a, **k))
+        return fit["lb"][-1]
+
+    def gmm_witness(variant, seg, index):
+        """A GMM that parts from the same input (within CLUSTER_TIE_GAP) and
+        the same k-means labels, whose JAX fit did not converge, and whose
+        first lower bound is within CLUSTER_TIE_GAP (relative) of JAX's: the
+        host's rounding, amplified by the non-converging steps."""
+        key = f"gmm/{variant}/seg{seg}/{index}"
+        info = fx["gmm"][variant].get(f"{seg}/{index}")
+        if info is None or key + "/x" not in arrays.files or "x" not in fit:
+            return None
+        jx, jlb = arrays[key + "/x"], arrays[key + "/lb"]
+        x_gap = float(np.abs(fit["x"] - jx).max()) if fit["x"].shape == jx.shape else \
+            float("inf")
+        lb_gap = float(abs(fit["lb"][0] - jlb[0]) / abs(jlb[0])) if len(fit["lb"]) and \
+            len(jlb) else float("inf")
+        same_init = key + "/km" in arrays.files and "km" in fit and \
+            np.array_equal(fit["km"], arrays[key + "/km"])
+        return {"input_gap": x_gap, "kmeans_equal": bool(same_init),
+                "first_lower_bound_rel_gap": lb_gap, "jax_steps": info["n_iter"],
+                "jax_converged": info["converged"], "port_steps": len(fit["lb"]),
+                "witnessed": bool(x_gap < CLUSTER_TIE_GAP and same_init
+                                  and not info["converged"] and lb_gap < CLUSTER_TIE_GAP)}
+
+    partings, n_compared = [], 0
+    clustering.cosine_distance_matrix = recording_cos
+    engines.bayesian_gmm, engines.kmeans_labels, engines._gmm_lower_bound = \
+        recording_gmm, recording_km, recording_lb
+    grid_s = {}
+    try:
+        for variant in ("raw", "head"):
+            rng = np.random.RandomState(2020)
+            t0 = time.perf_counter()
+            for seg, (_, hyp_us) in enumerate(inputs[variant]):
+                table = wder_search.get_word_speakers(hyp_us, embeddings=True)[4]
+                jtable = wder_search.get_word_speakers(jax_inputs[variant][seg][1],
+                                                       embeddings=True)[4]
+                for index, pset in enumerate(wder_search.default_param_grid()[1:]):
+                    state = rng.get_state()
+                    seen.clear()
+                    fit.clear()
+                    try:
+                        got = np.asarray(wder_search.cluster_param_labels(
+                            table, pset, dev, rng)).tolist()
+                    except ValueError as e:
+                        got = f"ValueError: {e}"
+
+                    def rerun(pset=pset, state=state, jtable=jtable):
+                        r = np.random.RandomState()
+                        r.set_state(state)
+                        return np.asarray(wder_search.cluster_param_labels(
+                            jtable, pset, dev, r)).tolist()
+                    dims = 16 if pset[-2] == 16 and variant == "raw" else (
+                        64 if variant == "raw" else 10)
+                    n_compared += 1
+                    p = held(variant, seg, ref.pset_key(pset), got,
+                             fx["grid"][variant][seg][ref.pset_key(pset)], rerun, dims)
+                    if p and pset[0] == "gmm":
+                        p["gmm"] = gmm_witness(variant, seg, index)
+                        p["witnessed"] = bool(p["gmm"] and p["gmm"]["witnessed"])
+                    if p:
+                        partings.append(p)
+            grid_s[variant] = time.perf_counter() - t0
+
+        # cli.wder --cluster, each method x metric, labels of every segment
+        real_make = cli_wder.make_cluster_fn
+        for variant, extra in (("raw", []), ("head", ["--embed-head", jax_head])):
+            eval_file = os.path.join(base, f"ready_{variant}", "wder_ready.pkl")
+            os.makedirs(os.path.dirname(eval_file), exist_ok=True)
+            with open(eval_file, "wb") as f:
+                pickle.dump(raw, f)
+            for key, want in fx["wder"][variant].items():
+                method, metric = key.split("/")
+                got = []
+
+                def make(*a, **k):
+                    fn = real_make(*a, **k)
+
+                    def rec_fn(emb, **extra_kw):
+                        state, seg = k["rng"].get_state(), len(got)
+                        seen.clear()
+                        lab = np.asarray(fn(emb, **extra_kw)).tolist()
+                        got.append((lab, state, [np.asarray(e) for e in emb]))
+                        return lab
+                    return rec_fn
+
+                cli_wder.make_cluster_fn = make
+                raises = None
+                try:
+                    cli_wder.main(["--eval-file", eval_file, "--cluster", "--cluster-method",
+                                   method, "--metric", metric, "--workers", "1",
+                                   "--device", dev] + extra)
+                except ValueError as e:
+                    raises = f"ValueError: {e}"
+                finally:
+                    cli_wder.make_cluster_fn = real_make
+                n_compared += 1
+                if (raises or None) != want["raises"] or len(got) != len(want["labels"]):
+                    partings.append({"variant": variant, "set": f"cli.wder {key}",
+                                     "witnessed": False, "port": str(raises),
+                                     "jax": str(want["raises"]),
+                                     "segments": [len(got), len(want["labels"])]})
+                    continue
+                for seg, ((lab, state, emb), w) in enumerate(zip(got, want["labels"])):
+                    n_compared += 1
+                    jemb = [h[1][0] for h in jax_inputs[variant][seg][1]]
+
+                    def rerun(state=state, jemb=jemb, method=method, metric=metric):
+                        r = np.random.RandomState()
+                        r.set_state(state)
+                        return np.asarray(clustering.cluster_embeddings(
+                            jemb, method=method, metric=metric, device=dev, rng=r)).tolist()
+                    p = held(variant, seg, f"cli.wder {key}", lab, w, rerun,
+                             64 if variant == "raw" else 10)
+                    if p:
+                        partings.append(p)
+    finally:
+        clustering.cosine_distance_matrix = real_cos
+        engines.bayesian_gmm, engines.kmeans_labels, engines._gmm_lower_bound = \
+            real_gmm, real_km, real_lb
+
+    # the grid CLI's TSV and the chain's -wder.pkl against the JAX CLIs'
+    tsv, pkl = {}, {}
+    for variant, extra in (("raw", []), ("head", ["--embed-head", jax_head])):
+        out_tsv = os.path.join(base, f"grid_{variant}.tsv")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            cli_wder_search.main(["--eval-file", os.path.join(base, "ready_raw", "wder_ready.pkl"),
+                                  "--workers", "1", "--out-tsv", out_tsv, "--device", dev] + extra)
+            with open(out_tsv) as f:
+                got = {"text": f.read(), "raises": None}
+        except ValueError as e:
+            got = {"text": None, "raises": f"ValueError: {e}"}
+        tsv[variant] = {"equal": got == fx["tsv"][variant], "s": time.perf_counter() - t0,
+                        "raises": got["raises"], "lines": len((got["text"] or "").splitlines())}
+        fields = cli_wder.main(["--eval-file", os.path.join(base, "ready_raw", "wder_ready.pkl"),
+                                "--cluster", "--cluster-method", fx["chain"][0], "--metric",
+                                fx["chain"][1], "--workers", "1", "--device", dev] + extra)
+        want = fx["wder_pkl"][variant]
+        pkl[variant] = {
+            "wder_pct": 100 * fields["overall_wder"], "jax_wder_pct": 100 * want["overall_wder"],
+            "equal": fields["overall_wder"] == want["overall_wder"]
+            and fields["overall_wer"] == want["overall_wer"]
+            and [np.asarray(h).tolist() for h in fields["hyp_speakers"]] == want["hyp_speakers"]
+            and [np.asarray(r).tolist() for r in fields["ref_speakers"]] == want["ref_speakers"]}
+
+    unwitnessed = [p for p in partings if not p["witnessed"]]
+    out = {"phase": "cluster_1x", "card": card,
+           "chain": {"note": "each aligned segment holds one reference utterance: this "
+                             "checks the path, not the engines",
+                     "cluster_wder_pct": chain["raw"]["wder_pct"],
+                     "cluster_head_wder_pct": chain["head"]["wder_pct"],
+                     "jax_cluster_wder_pct": 0.0, "jax_cluster_head_wder_pct": 0.0,
+                     "eval_s": eval_s, "launches": rec["launches"],
+                     "decode_steps": rec["decode_steps"], "head_from": head_from,
+                     "wder_s": {k: v["s"] for k, v in chain.items()}},
+           "engines": {"segments": len(fx["segments"]),
+                       "rows": [len(seg) for seg in fx["segments"]],
+                       "compared": n_compared, "partings": partings,
+                       "head_rows_max_abs_err": head_err, "head_tolerance": CLUSTER_HEAD_TOL,
+                       "grid_s": grid_s, "tsv": tsv, "wder_pkl": pkl}}
+    emit(out)
+    if rec["launches"]["fused_layer_step"] <= 0 or rec["launches"]["fused_logmel_project"] <= 0:
+        fail(f"cluster_1x: the chain's eval launched {rec['launches']}")
+    if unwitnessed:
+        fail(f"cluster_1x: {len(unwitnessed)} partitions part from JAX's without a "
+             f"near-tie witness: {unwitnessed[:4]}")
+    if head_err > CLUSTER_HEAD_TOL:
+        fail(f"cluster_1x: the head's images {head_err} from the JAX CLI's")
+    # a witnessed parting may move the figures it feeds, and nothing else may
+    for variant in ("raw", "head"):
+        mine = [p["set"] for p in partings if p["variant"] == variant]
+        if not tsv[variant]["equal"] and not any(not m.startswith("cli.wder") for m in mine):
+            fail(f"cluster_1x: the cli.wder_search TSV ({variant}) differs from the JAX "
+                 f"CLI's: {tsv[variant]}")
+        if not pkl[variant]["equal"] and "cli.wder " + "/".join(fx["chain"]) not in mine:
+            fail(f"cluster_1x: the chain's -wder.pkl fields ({variant}) differ from the JAX "
+                 f"CLI's: {pkl[variant]}")
+    return out
+
+
+def cluster_entries(cl, k1_rec, k2_eval):
+    """The clustering chain's kernels: K1 and K2 in its eval CLI run (the
+    eval_aligned_1x shapes)."""
+    launches = cl["chain"]["launches"]
+    return [kernel_entry("cluster_1x:eval", k1_rec, launches["fused_layer_step"],
+                         k1_rec["max_abs_err"]["x_out"], "none"),
+            kernel_entry("cluster_1x:eval", k2_eval, launches["fused_logmel_project"],
+                         k2_eval["max_abs_err"])]
+
+
 def noncausal_entries(nc, k2_eval, k2_beam_part, k2_sm_part):
     """The non-causal phase's kernels, each with its launches in one run: K2
     in the main run (N = 64064 / 54054) and in the two-shard bf16 runs
@@ -3552,7 +3922,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default="all",
                     choices=("all", "kernels", "train", "eval", "unaligned", "train_cli",
-                             "lm", "spk", "noncausal", "embed"),
+                             "lm", "spk", "noncausal", "embed", "cluster"),
                     help="'kernels' stops after the build and the kernel checks; "
                          "'train' skips the serving and eval phases; 'eval' runs "
                          "eval_aligned_1x after the kernel checks, nothing else; "
@@ -3560,7 +3930,7 @@ def main() -> None:
                          "'train_cli' runs train_cli_1x after them; 'lm' runs "
                          "lm_fusion_1x after them; 'spk' runs spk_head_1x after them; "
                          "'noncausal' runs noncausal_1x after them; 'embed' runs "
-                         "embed_1x after them")
+                         "embed_1x after them; 'cluster' runs cluster_1x after them")
     ap.add_argument("--profile", action="store_true",
                     help="also trace one fused greedy generate per model, each eval "
                          "CLI run, one 2x training step, the training CLI's second "
@@ -3769,7 +4139,11 @@ def main() -> None:
         k2_train8 = {shape: check_logmel(torch, dev, *map(int, shape.split("x")))
                      for shape in em["gen_embed"]["train8_bf16"]["k2_launches_by_shape"]}
         entries += embed_entries(em, k2_eval, k2_train8)
-    if args.phases in ("noncausal", "embed"):
+    # ---- 12. the embedding chain's clustering half -------------------------------
+    if args.phases in ("all", "cluster"):
+        entries += cluster_entries(run_cluster_1x(torch, dev, root, out_dir, card),
+                                   k1_rec, k2_eval)
+    if args.phases in ("noncausal", "embed", "cluster"):
         shutil.rmtree(out_dir, ignore_errors=True)
         finish(torch, entries, card, t_start)
         return

@@ -8,9 +8,12 @@ the counterpart of tal_asrd_tpu.cli.<name> with the same flags plus
   gen_embed    — speaker-embedding export
   train_embed  — contrastive metric head
   train_lm     — shallow-fusion LM training
+  wder         — WER / WDER scoring, with clustering of the embeddings
+  wder_search  — clustering grid search
   vad          — batch VAD + eval
-  tools        — tokenizer training, audio chunking, checkpoint averaging,
-                 speaker expansion, the synthetic corpus
+  tools        — tokenizer training, audio conversion / chunking, checkpoint
+                 averaging, speaker expansion, output merging, LibriSpeech
+                 and wder-ready formats, the synthetic corpus
 
-Not ported yet: wder and wder_search (ROADMAP A16.2), uisrnn (A17).
+Not ported yet: uisrnn (ROADMAP A17).
 """

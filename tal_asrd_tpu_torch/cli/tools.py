@@ -5,28 +5,35 @@
     python -m tal_asrd_tpu_torch.cli.tools synth-corpus --out-dir DIR [--episodes 8 ...]
     python -m tal_asrd_tpu_torch.cli.tools train-tokenizer --input TXT --model-prefix P
     python -m tal_asrd_tpu_torch.cli.tools chunk-audio --src WAV_OR_GLOB --out-dir DIR
+    python -m tal_asrd_tpu_torch.cli.tools convert-audio --src FILE_OR_GLOB --out-dir DIR
+    python -m tal_asrd_tpu_torch.cli.tools merge-outputs --inputs A.jsonl B.jsonl --out P
+    python -m tal_asrd_tpu_torch.cli.tools librispeech-format --src SPLIT --out-dir DIR
+    python -m tal_asrd_tpu_torch.cli.tools wder-format --test-result PKL --out PKL \
+        [--role-map JSON] [--sd-features NPY] [--chunk 357] [--device cuda]
 
-Counterpart of tal_asrd_tpu/cli/tools.py for the subcommands of the
-training recipe (`scripts/ensure_corpus.sh`, `scripts/accuracy.sh`), with
-the same arguments and output files: `average-ckpt` writes the leaf-wise
-mean of the last k checkpoints of a run (`CheckpointManager.average_last`),
-`expand-speakers` grows a checkpoint's embedding table for new speaker
-tokens. The reference's other subcommands are not ported yet: they exit
-non-zero naming the ROADMAP item that ports them (`UNPORTED`).
+Counterpart of tal_asrd_tpu/cli/tools.py, with the same arguments and
+output files: `average-ckpt` writes the leaf-wise mean of the last k
+checkpoints of a run (`CheckpointManager.average_last`), `expand-speakers`
+grows a checkpoint's embedding table for new speaker tokens,
+`convert-audio` writes mono 16 kHz wavs (ffmpeg for other containers),
+`merge-outputs` joins jsonl shards into one pickle, `librispeech-format`
+lays a LibriSpeech split out as a transcript.pkl corpus (one episode a
+chapter), `wder-format` turns a test_result.pkl into the wder-ready pickle
+(with --sd-features, attention-windowed embeddings on --device). The
+reference's other subcommands are not ported yet: they exit non-zero
+naming the ROADMAP item that ports them (`UNPORTED`).
 """
 from __future__ import annotations
 
 import argparse
+import json
 import os
+import pickle
 import sys
 from glob import glob
 from typing import List, Optional
 
 UNPORTED = {
-    "convert-audio": "A16.2 (the rest of cli/tools.py)",
-    "merge-outputs": "A16.2 (eval/tools.py)",
-    "librispeech-format": "A16.2 (the rest of cli/tools.py)",
-    "wder-format": "A16.2 (the SD-feature and word-level cases of eval/convert.py)",
     "diar-features": "A17 (diarization features)",
     "synth-sad-stress": "A18 (build_sad_stress_corpus)",
 }
@@ -34,6 +41,65 @@ UNPORTED = {
 
 def _files(src: str) -> List[str]:
     return sorted(glob(src)) if any(ch in src for ch in "*?") else [src]
+
+
+def librispeech_format(src: str, out_dir: str) -> None:
+    """One episode a chapter: the chapter's utterance files (wav, or flac
+    through ffmpeg) concatenated into <speaker>-<chapter>.wav, each an
+    utterance dict at its place in it; transcript.pkl and speaker_map.json."""
+    import numpy as np
+
+    from tal_asrd_tpu_torch.data.audio_io import (
+        DEFAULT_SR, convert_audio, load_audio_segment, write_wav)
+
+    os.makedirs(out_dir, exist_ok=True)
+    transcripts, speakers = {}, {}
+    for spk_dir in sorted(os.listdir(src)):
+        spk_path = os.path.join(src, spk_dir)
+        if not os.path.isdir(spk_path):
+            continue
+        for chap_dir in sorted(os.listdir(spk_path)):
+            chap_path = os.path.join(spk_path, chap_dir)
+            trans = glob(os.path.join(chap_path, "*.trans.txt"))
+            if not trans:
+                continue
+            lines = {}
+            with open(trans[0]) as f:
+                for line in f:
+                    utt_id, _, text = line.strip().partition(" ")
+                    lines[utt_id] = text
+            chunks, utts, t = [], [], 0.0
+            for utt_id in sorted(lines):
+                for ext in (".wav", ".flac"):
+                    ap = os.path.join(chap_path, utt_id + ext)
+                    if os.path.exists(ap):
+                        break
+                else:
+                    continue
+                if ap.endswith(".flac"):
+                    tmp = os.path.join(out_dir, utt_id + ".tmp.wav")
+                    convert_audio(ap, tmp)
+                    ap = tmp
+                x = load_audio_segment(ap, 0.0, None)
+                dur = len(x) / DEFAULT_SR
+                utts.append({"utterance": lines[utt_id].lower(), "speaker": spk_dir,
+                             "utterance_start": t, "utterance_end": t + dur,
+                             "role": "subject"})
+                chunks.append(x)
+                t += dur
+                if ap.endswith(".tmp.wav"):
+                    os.remove(ap)
+            if not chunks:
+                continue
+            stub = f"{spk_dir}-{chap_dir}"
+            write_wav(os.path.join(out_dir, stub + ".wav"), np.concatenate(chunks))
+            transcripts[stub] = utts
+            speakers.setdefault(spk_dir.lower(), len(speakers))
+    with open(os.path.join(out_dir, "transcript.pkl"), "wb") as f:
+        pickle.dump(transcripts, f)
+    with open(os.path.join(out_dir, "speaker_map.json"), "w") as f:
+        json.dump(speakers, f)
+    print(f"wrote {len(transcripts)} episodes to {out_dir}")
 
 
 def main(argv: Optional[List[str]] = None) -> None:
@@ -45,6 +111,11 @@ def main(argv: Optional[List[str]] = None) -> None:
     t.add_argument("--model-prefix", required=True)
     t.add_argument("--vocab-size", type=int, default=10000)
     t.add_argument("--character-coverage", type=float, default=1.0)
+
+    c = sub.add_parser("convert-audio")
+    c.add_argument("--src", required=True)
+    c.add_argument("--out-dir", required=True)
+    c.add_argument("--sr", type=int, default=16000)
 
     ch = sub.add_parser("chunk-audio")
     ch.add_argument("--src", required=True)
@@ -60,6 +131,27 @@ def main(argv: Optional[List[str]] = None) -> None:
     e.add_argument("--ckpt", required=True)
     e.add_argument("--num-tokens", type=int, required=True)
     e.add_argument("--out", required=True)
+
+    m = sub.add_parser("merge-outputs")
+    m.add_argument("--inputs", nargs="+", required=True)
+    m.add_argument("--out", required=True)
+
+    ls = sub.add_parser("librispeech-format",
+                        help="LibriSpeech layout -> transcript.pkl corpus")
+    ls.add_argument("--src", required=True,
+                    help="LibriSpeech split dir (speaker/chapter/*.flac|wav + .trans.txt)")
+    ls.add_argument("--out-dir", required=True)
+
+    wf = sub.add_parser("wder-format", help="test_result.pkl -> wder_ready.pkl")
+    wf.add_argument("--test-result", required=True)
+    wf.add_argument("--out", required=True)
+    wf.add_argument("--role-map", default=None, help="optional speaker->role json")
+    wf.add_argument("--sd-features", default=None,
+                    help="optional .npy of separate-SD frame features for "
+                         "attention-weighted speaker embeddings")
+    wf.add_argument("--chunk", type=int, default=357)
+    wf.add_argument("--device", default="cuda",
+                    help="where the attention-weighted embeddings are computed")
 
     sy = sub.add_parser("synth-corpus",
                         help="synthetic-speech corpus in the reference's layout "
@@ -85,6 +177,16 @@ def main(argv: Optional[List[str]] = None) -> None:
         model = BpeTrainer(args.vocab_size, args.character_coverage).train_file(
             args.input, args.model_prefix + ".model")
         print(f"trained {len(model)}-piece model -> {args.model_prefix}.model")
+
+    elif args.cmd == "convert-audio":
+        from tal_asrd_tpu_torch.data.audio_io import convert_audio
+
+        files = _files(args.src)
+        os.makedirs(args.out_dir, exist_ok=True)
+        for f in files:
+            stub = os.path.splitext(os.path.basename(f))[0]
+            convert_audio(f, os.path.join(args.out_dir, stub + ".wav"), args.sr)
+        print(f"converted {len(files)} files")
 
     elif args.cmd == "chunk-audio":
         from tal_asrd_tpu_torch.data.audio_io import (
@@ -119,6 +221,33 @@ def main(argv: Optional[List[str]] = None) -> None:
         params["embedding"]["embedding"] = expand_speaker_embeddings(emb, args.num_tokens)
         save_pytree(args.out, params)
         print(f"expanded embedding {emb.shape[0]} -> {args.num_tokens} rows")
+
+    elif args.cmd == "merge-outputs":
+        from tal_asrd_tpu_torch.eval.tools import merge_outputs
+
+        rows = merge_outputs(args.inputs, args.out)
+        print(f"merged {len(rows)} rows -> {args.out}")
+
+    elif args.cmd == "librispeech-format":
+        librispeech_format(args.src, args.out_dir)
+
+    elif args.cmd == "wder-format":
+        import numpy as np
+
+        from tal_asrd_tpu_torch.eval.convert import convert_results
+
+        with open(args.test_result, "rb") as f:
+            results = pickle.load(f)
+        role_map = None
+        if args.role_map:
+            with open(args.role_map) as f:
+                role_map = json.load(f)
+        sd = np.load(args.sd_features) if args.sd_features else None
+        out = convert_results(results, role_map=role_map, sd_features=sd,
+                              chunk=args.chunk, device=args.device)
+        with open(args.out, "wb") as f:
+            pickle.dump(out, f)
+        print(f"wrote {len(out)} wder-ready pairs to {args.out}")
 
     elif args.cmd == "synth-corpus":
         from tal_asrd_tpu_torch.data.synth import build_synth_corpus

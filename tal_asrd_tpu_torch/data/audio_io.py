@@ -2,10 +2,12 @@
 
 Counterpart of tal_asrd_tpu/data/audio_io.py: stdlib `wave` + numpy, and
 scipy's polyphase resampling when a file's rate differs from the target.
-PCM wav only.
+PCM wav only; `convert_audio` turns other containers into wav with ffmpeg.
 """
 from __future__ import annotations
 
+import shutil
+import subprocess
 import wave
 from dataclasses import dataclass
 from typing import Optional
@@ -97,3 +99,18 @@ def write_wav(path: str, x: np.ndarray, sr: int = DEFAULT_SR) -> None:
         w.setsampwidth(2)
         w.setframerate(sr)
         w.writeframes(x16.tobytes())
+
+
+def convert_audio(src: str, dst: str, sr: int = DEFAULT_SR) -> str:
+    """Any container -> mono 16-bit wav at `sr`: a wav is read and written
+    here, anything else goes through ffmpeg (an error names it if it is not
+    installed)."""
+    if src.lower().endswith(".wav"):
+        write_wav(dst, load_audio_segment(src, 0.0, None, sr), sr)
+        return dst
+    ffmpeg = shutil.which("ffmpeg")
+    if ffmpeg is None:
+        raise RuntimeError(f"ffmpeg not available to convert {src}")
+    subprocess.run([ffmpeg, "-y", "-i", src, "-ac", "1", "-ar", str(sr),
+                    "-acodec", "pcm_s16le", dst], check=True, capture_output=True)
+    return dst

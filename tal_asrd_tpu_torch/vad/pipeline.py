@@ -3,8 +3,8 @@
 Counterpart of tal_asrd_tpu/vad/pipeline.py: for each wav, compute its
 speech bounds, write a bounds pickle and (optionally) the concatenated
 speech-only wav; a file whose outputs exist is read back instead
-(incremental resume). Files fan out over a thread pool (the reference uses
-joblib processes); each file's result is the same either way.
+(incremental resume). Files fan out over a thread pool (the reference fans
+out over processes); each file's result is the same either way.
 """
 from __future__ import annotations
 

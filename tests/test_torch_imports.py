@@ -128,19 +128,80 @@ def test_the_speaker_head_reference_script_builds_its_tree_with_numpy_alone():
     assert "BAD=\n" in res.stdout + "\n", res.stdout
 
 
+CLUSTERING_MODULES = ["tal_asrd_tpu_torch.eval.engines", "tal_asrd_tpu_torch.eval.clustering",
+                      "tal_asrd_tpu_torch.eval.wder_search", "tal_asrd_tpu_torch.eval.tools",
+                      "tal_asrd_tpu_torch.eval.convert", "tal_asrd_tpu_torch.eval.wder",
+                      "tal_asrd_tpu_torch.cli.wder", "tal_asrd_tpu_torch.cli.wder_search",
+                      "tal_asrd_tpu_torch.cli.tools"]
+
+
+def test_the_clustering_modules_run_with_sklearn_joblib_and_jax_blocked():
+    """The embedding chain's clustering half imports and clusters (every
+    engine, PCA, a GMM, workers 2) with sklearn, joblib, jax and the JAX
+    package set to None in sys.modules: any import of them raises."""
+    assert set(CLUSTERING_MODULES) <= set(_port_modules())
+    code = (
+        "import importlib, sys\n"
+        "for name in ('sklearn', 'joblib', 'jax', 'jaxlib', 'flax', 'tal_asrd_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        f"sys.path.insert(0, {ROOT!r})\n"
+        f"for m in {CLUSTERING_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import numpy as np\n"
+        "from tal_asrd_tpu_torch.eval.clustering import cluster_embeddings\n"
+        "from tal_asrd_tpu_torch.eval.wder_search import corpus_wder_map, default_param_grid\n"
+        "r = np.random.RandomState(0)\n"
+        "x = np.concatenate([r.randn(10, 20) + 4 * k for k in range(2)]).astype(np.float32)\n"
+        "for method in ('hdbscan', 'dbscan', 'agglomerative', 'gmm', 'id'):\n"
+        "    for metric in ('euclidean', 'cos_dist', 'idp'):\n"
+        "        cluster_embeddings(x, method, metric, 16, device='cpu',\n"
+        "                           rng=np.random.RandomState(1))\n"
+        "pairs = [([(f'w{i} x', i % 2, 'host') for i in range(20)],\n"
+        "          [(f'w{i} x', (x[i], i % 2), 'subject') for i in range(20)])] * 2\n"
+        "grid = [p for p in default_param_grid() if p[0] != 'gmm']\n"
+        "assert corpus_wder_map(pairs, grid, workers=2, device='cpu') == \\\n"
+        "    corpus_wder_map(pairs, grid, workers=1, device='cpu')\n"
+        "print('OK')\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=ROOT, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert "OK" in res.stdout
+
+
+def test_no_port_file_names_sklearn_or_joblib():
+    pat = re.compile(r"\b(sklearn|joblib)\b")
+    hits = []
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for base, _, names in os.walk(os.path.join(ROOT, "tal_asrd_tpu_torch")):
+        files += [os.path.join(base, n) for n in names if n.endswith(".py")]
+    for path in files:
+        with open(path) as f:
+            hits += [f"{path}:{i}" for i, line in enumerate(f, 1) if pat.search(line)]
+    assert not hits, hits
+
+
 @pytest.mark.parametrize("target", ["ASRModel", "make_generate_fn", "ASRSystem",
                                     "EvalRunner", "cli.test", "Transcriber",
                                     "cli.transcribe", "cli.vad", "cli.train",
                                     "cli.train_lm", "DecoderLMModel", "LMSystem",
-                                    "cli.gen_embed", "cli.train_embed", "EmbedSystem"])
+                                    "cli.gen_embed", "cli.train_embed", "EmbedSystem",
+                                    "cli.wder", "cli.wder_search", "cli.tools wder-format",
+                                    "cluster_embeddings", "apply_embed_head",
+                                    "convert_results"])
 def test_entry_points_default_to_cuda(target):
     from tal_asrd_tpu_torch.cli import train_embed as cli_train_embed
     from tal_asrd_tpu_torch.cli import transcribe as cli_transcribe
+    from tal_asrd_tpu_torch.cli import wder as cli_wder
+    from tal_asrd_tpu_torch.cli import wder_search as cli_wder_search
     from tal_asrd_tpu_torch.cli import vad as cli_vad
     from tal_asrd_tpu_torch.cli.args import get_argparser, get_lm_argparser
     from tal_asrd_tpu_torch.decode.beam import make_generate_fn
     from tal_asrd_tpu_torch.decode.transcribe import Transcriber
+    from tal_asrd_tpu_torch.eval.clustering import cluster_embeddings
+    from tal_asrd_tpu_torch.eval.convert import convert_results
     from tal_asrd_tpu_torch.eval.runner import EvalRunner
+    from tal_asrd_tpu_torch.eval.wder_search import apply_embed_head
     from tal_asrd_tpu_torch.models.asr import ASRModel
     from tal_asrd_tpu_torch.models.lm import DecoderLMModel
     from tal_asrd_tpu_torch.train.embed_system import EmbedSystem
@@ -162,7 +223,13 @@ def test_entry_points_default_to_cuda(target):
                                           "--tokenizer", "t", "--model-type", "1x"]),
         "cli.train_embed": (cli_train_embed.get_parser, ["--train-data", "t.pkl",
                                                          "--valid-data", "v.pkl"]),
+        "cli.wder": (cli_wder.get_parser, ["--eval-file", "r.pkl"]),
+        "cli.wder_search": (cli_wder_search.get_parser, ["--eval-file", "r.pkl"]),
     }
+    if target == "cli.tools wder-format":
+        import tal_asrd_tpu_torch.cli.tools as cli_tools
+        assert 'wf.add_argument("--device", default="cuda"' in inspect.getsource(cli_tools)
+        return
     if target in parsers:
         make, argv = parsers[target]
         assert make().parse_args(argv).device == "cuda"
@@ -170,7 +237,9 @@ def test_entry_points_default_to_cuda(target):
     fn = {"ASRModel": ASRModel.__init__, "make_generate_fn": make_generate_fn,
           "ASRSystem": ASRSystem.__init__, "EvalRunner": EvalRunner.__init__,
           "Transcriber": Transcriber.__init__, "DecoderLMModel": DecoderLMModel.__init__,
-          "LMSystem": LMSystem.__init__, "EmbedSystem": EmbedSystem.__init__}[target]
+          "LMSystem": LMSystem.__init__, "EmbedSystem": EmbedSystem.__init__,
+          "cluster_embeddings": cluster_embeddings, "apply_embed_head": apply_embed_head,
+          "convert_results": convert_results}[target]
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
