@@ -12,6 +12,8 @@
     python3 chip_smoke.py --phases noncausal # ... + the non-causal and sharded decode only
     python3 chip_smoke.py --phases embed     # ... + the speaker-embedding chain only
     python3 chip_smoke.py --phases cluster   # ... + the embedding chain's clustering half only
+    python3 chip_smoke.py --phases sd        # ... + the speaker baseline and its reconciliation only
+    python3 chip_smoke.py --phases sad       # ... + the neural SAD only
 
 Builds the port's CUDA kernels from tal_asrd_tpu_torch/csrc/ with nvcc, holds
 each against its plain PyTorch version on the card at the shapes its paths
@@ -106,6 +108,23 @@ the JAX CLI's head (the distances and the head on the card), against the
 JAX CPU reference tests/fixtures/torch_cluster_reference.json, and
 `cli.wder_search`'s TSV against the JAX CLI's.
 
+Then the speaker baseline (`sd_baseline_1x`, `--phases sd`): SDModel at
+the 1x TDS's full width (6008 speakers) from scripts/torch_sd_reference.py's
+`seeded_sd_tree` (the tracked encoder under seeded heads) — its frame
+features in f32 and bf16 and 6 f32 LAMB steps against the JAX CPU reference
+(tests/fixtures/torch_sd_reference.json) — then `python -m
+tal_asrd_tpu_torch.cli.train_sd` at its defaults for 20 steps (K2, K4), and
+the reconciliation chain with that checkpoint: `dump_episode_features`
+over the test split (K2), the eval CLI --unaligned --fused-decode on its
+first episode (K1, K2), `cli.tools wder-format --sd-features`, `cli.wder
+--cluster` and `merge_asr_sd`. Then the neural SAD (`sad_1x`, `--phases
+sad`): the stress corpus through `cli.tools synth-sad-stress` byte for byte,
+PyanNet's scores and 25 Adam steps from scripts/torch_sad_reference.py's
+`seeded_pyannet_tree` against the JAX CPU reference
+(tests/fixtures/torch_sad_reference.json), `python -m
+tal_asrd_tpu_torch.cli.sad --steps 500` and its --load (PyanNet launches no
+hand-written kernel).
+
 Then it runs the training CLI (`train_cli_1x`): `python -m
 tal_asrd_tpu_torch.cli.train`'s `main` at scripts/accuracy.sh's last
 phase's flags (B = 16, --max-secs 28.5, --shiftaug --cache-items
@@ -122,7 +141,7 @@ K4 at [16, 3001, 80], both on int16 audio.
 Prints one JSON object per line: `device`, one `kernel` line per check,
 `k3_vs_k1_chain`, `k1_determinism`, `k3_determinism`, `kernel_timing`, one `serve_*` line per configuration,
 `eval_aligned_1x`, `prefill_handoff`, `eval_unaligned_1x`, `lm_fusion_1x`, `spk_head_1x`,
-`noncausal_1x`, `embed_1x`, `cluster_1x`, `train_2x`, `train_1x_checkpoint`, `train_cli_1x`, `kernels` (every kernel of each path with
+`noncausal_1x`, `embed_1x`, `cluster_1x`, `sd_baseline_1x`, `sad_1x`, `train_2x`, `train_1x_checkpoint`, `train_cli_1x`, `kernels` (every kernel of each path with
 its launch count in that path's one timed run, its error against the plain
 version, its time, the plain version's, a library call's where one exists,
 and the least time the card could take), and last
@@ -825,17 +844,19 @@ def profile_call(torch, tag, gen, args):
     top_cpu = sorted((e for e in events
                       if e.device_type != torch.autograd.DeviceType.CUDA),
                      key=lambda e: e.self_cpu_time_total, reverse=True)[:8]
-    emit({"phase": "profile", "of": tag, "wall_seconds_traced": wall,
-          "device_busy_seconds": busy,
-          "device_idle_share": (1.0 - busy / wall) if busy > 0 else None,
-          "device_launches": sum(e.count for e in on_device),
-          "device_ranges": [{"name": e.key[:60], "ms": dev_time(e) / 1e3}
-                            for e in events if getattr(e, "is_user_annotation", False)
-                            and e.device_type == torch.autograd.DeviceType.CUDA],
-          "top_device": [{"name": e.key[:60], "calls": e.count,
-                          "ms": dev_time(e) / 1e3} for e in top_dev],
-          "top_host": [{"name": e.key[:60], "calls": e.count,
-                        "ms": e.self_cpu_time_total / 1e3} for e in top_cpu]})
+    rec = {"phase": "profile", "of": tag, "wall_seconds_traced": wall,
+           "device_busy_seconds": busy,
+           "device_idle_share": (1.0 - busy / wall) if busy > 0 else None,
+           "device_launches": sum(e.count for e in on_device),
+           "device_ranges": [{"name": e.key[:60], "ms": dev_time(e) / 1e3}
+                             for e in events if getattr(e, "is_user_annotation", False)
+                             and e.device_type == torch.autograd.DeviceType.CUDA],
+           "top_device": [{"name": e.key[:60], "calls": e.count,
+                           "ms": dev_time(e) / 1e3} for e in top_dev],
+           "top_host": [{"name": e.key[:60], "calls": e.count,
+                         "ms": e.self_cpu_time_total / 1e3} for e in top_cpu]}
+    emit(rec)
+    return rec
 
 
 def serve(torch, dev, tag, model, audio_np, max_new, greedy_b, beam_b,
@@ -3776,6 +3797,481 @@ def run_cluster_1x(torch, dev, root, out_dir, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the speaker baseline (SD) and its reconciliation
+# ---------------------------------------------------------------------------
+SD_FIXTURE = os.path.join("tests", "fixtures", "torch_sd_reference.json")
+SD_ARRAYS = os.path.join("tests", "fixtures", "torch_sd_reference_arrays.npz")
+SD_FEATURE_TOL = 1e-4                 # f32 frame embeddings against the JAX CPU reference's
+SD_TIE_GAP = 1e-5                     # top-2 logits closer than this: an argmax tie
+SD_ARGMAX_SHARE = 0.97                # bf16 argmax ids against JAX's f32 ids
+SD_LOSS_TOL = 1e-4                    # f32 LAMB losses (relative) against JAX's
+SD_CLI_STEPS = 20
+SD_WINDOW_TOL = 1e-5                  # the card's window embeddings against the host einsum
+
+
+def counted_steps(torch, cls, counters):
+    """Wrap cls.train_step to record each batch's audio shape and the
+    kernel launches its step made (read off the counters around it).
+    Returns (shapes, restore)."""
+    shapes = {}
+    real = cls.train_step
+
+    def step(self, batch):
+        before = {k: fn.launches for k, fn in counters.items()}
+        out = real(self, batch)
+        rec = shapes.setdefault("x".join(map(str, np.shape(batch["audio"]))),
+                                dict.fromkeys(["steps", *counters], 0))
+        rec["steps"] += 1
+        for k, fn in counters.items():
+            rec[k] += fn.launches - before[k]
+        return out
+    cls.train_step = step
+    return shapes, lambda: setattr(cls, "train_step", real)
+
+
+def window_gap(test_result, ready, feats, chunk=357):
+    """Largest gap between the card's attention-windowed SD embeddings in
+    the wder-ready pickle and the host's numpy einsum of the same inputs
+    (eval/convert.py `_window_embed`'s arithmetic), over every hypothesis
+    utterance; and how many there were."""
+    with open(test_result, "rb") as f:
+        results = pickle.load(f)
+    with open(ready, "rb") as f:
+        pairs = pickle.load(f)
+    feats = np.asarray(feats, np.float32)
+    t_total, d = feats.shape
+    padded = np.concatenate([feats, np.zeros((chunk, d), np.float32)])
+    gap, n = 0.0, 0
+    for (_, hyps), (_, entries) in zip(results, pairs):
+        for h, (_, (emb, _), _) in zip(hyps, entries):
+            att = np.asarray(h["attention"], np.float32)[..., :chunk]
+            idx = np.minimum(np.asarray(h["chunkStart"], np.int64)[:, None]
+                             + np.arange(att.shape[1])[None, :], t_total + chunk - 1)
+            host = np.einsum("tc,tcd->td", att * (idx < t_total), padded[idx])
+            gap = max(gap, float(np.abs(host - emb).max()))
+            n += 1
+    return gap, n
+
+
+def hyp_times(hyps, hop=0.08):
+    """A separate-ASR hypothesis utterance's times, from the machine's
+    alignment: its tokens' attention peaks (chunkStart + argmax), the first
+    peak's frame to one past the last's."""
+    out = []
+    for h in hyps:
+        frames = (np.asarray(h["chunkStart"], np.int64)
+                  + np.asarray(h["attention"], np.float32).argmax(-1))
+        out.append({"utterance": h["utterance"], "utterance_start": float(frames.min() * hop),
+                    "utterance_end": float((frames.max() + 1) * hop)})
+    return out
+
+
+def run_sd_baseline_1x(torch, dev, root, out_dir, card, trace=False):
+    """The speaker baseline at the 1x TDS's full width (SDModelConfig: 6008
+    speakers) on the card. (a) `SDSystem.frame_features` on the seeded tree
+    (scripts/torch_sd_reference.py `seeded_sd_tree`: the tracked encoder
+    under seeded heads) over the first two SDUtteranceDataset samples of the
+    test split, f32 (TF32 off) against the JAX CPU reference (SD_FIXTURE)
+    and bf16 against JAX's f32 ids. (b) 6 f32 LAMB steps of SDSystem at
+    B = 4 x 10 s against JAX's losses. (c) `python -m
+    tal_asrd_tpu_torch.cli.train_sd` at its defaults (batch 64, --max-secs
+    20, bf16, SpecAugment on) on the train split cut to 8 episodes,
+    --max-steps 20, K2 and K4 counted by batch shape. (d) The
+    reconciliation chain with that checkpoint: `dump_episode_features` over
+    the test split's episodes (K2), the eval CLI --unaligned --fused-decode
+    on a split of the first episode alone (K1, K2; the counts set to 0 just
+    before it and read just after), `cli.tools wder-format --sd-features`
+    (its window embeddings against the host's einsum) and `cli.wder` on it
+    (`--cluster` raises there, as JAX's does: ROADMAP C27), and
+    `merge_asr_sd` of the machine's utterances (times from its attention
+    peaks) with the SD frame tracks, scored by `cli.wder` on the SD ids and
+    `cli.wder --cluster` on the mean SD embeddings."""
+    from tal_asrd_tpu_torch.baseline import SDSystem, dump_episode_features, merge_asr_sd
+    from tal_asrd_tpu_torch.cli import tools as cli_tools
+    from tal_asrd_tpu_torch.cli import train_sd as cli_train_sd
+    from tal_asrd_tpu_torch.cli import wder as cli_wder
+    from tal_asrd_tpu_torch.core.checkpoint import load_pytree
+    from tal_asrd_tpu_torch.core.config import SDModelConfig, SpecAugmentConfig, TrainConfig
+    from tal_asrd_tpu_torch.data import SDCollater, SDUtteranceDataset
+    from tal_asrd_tpu_torch.data.audio_io import load_audio_segment
+    from tal_asrd_tpu_torch.data.synth import build_synth_corpus
+    from tal_asrd_tpu_torch.data.transcript import load_transcripts
+    from tal_asrd_tpu_torch.eval.convert import convert_results
+    from tal_asrd_tpu_torch.ops.cuda_decode import fused_layer_step
+    from tal_asrd_tpu_torch.ops.cuda_kernels import fused_logmel_project
+    from tal_asrd_tpu_torch.ops.specaug import spec_augment
+
+    ref = reference_script(root, "torch_sd_reference")
+    with open(os.path.join(root, SD_FIXTURE)) as f:
+        fx = json.load(f)
+    arrays = np.load(os.path.join(root, SD_ARRAYS))
+    base = os.path.join(out_dir, "sd")
+    os.makedirs(base, exist_ok=True)
+    tree = ref.seeded_sd_tree(load_pytree(os.path.join(root, ref.CHECKPOINT)))
+    test = eval_split_of(out_dir)
+    no_aug = SpecAugmentConfig(num_freq_masks=0, num_time_masks=0)
+    f32 = torch.float32
+    out = {"phase": "sd_baseline_1x", "card": card}
+
+    # ---- (a) frame features -----------------------------------------------------
+    ds = SDUtteranceDataset(test, speaker_map_loc=os.path.join(test, "speaker_map.json"))
+    batch = SDCollater()([ds[i] for i in ref.FEATURE_ITEMS])
+    if batch["audio_lens"].tolist() != fx["features"]["audio_lens"]:
+        fail(f"sd_baseline_1x: the test samples' lengths {batch['audio_lens'].tolist()} are "
+             f"not the fixture's {fx['features']['audio_lens']}")
+    want_emb, want_ids = arrays["features/emb"], arrays["features/ids"]
+    gap, want_pad = arrays["features/top2_gap"], arrays["features/pad"]
+    feats = {}
+    for name, dtype in (("f32", f32), ("bf16", torch.bfloat16)):
+        system = SDSystem(SDModelConfig(dropout=0.0), TrainConfig(**ref.TRAIN_CFG),
+                          specaug_cfg=no_aug, compute_dtype=dtype, device=dev)
+        system.load_params(tree)
+        emb, ids, pad = system.frame_features(batch["audio"], batch["audio_lens"])
+        real = ~want_pad
+        rec = {"pad_equal": bool(np.array_equal(pad, want_pad)),
+               "frames": int(real.sum()),
+               "argmax_share": float((ids == want_ids)[real].mean()),
+               "max_abs_err": float(np.abs(emb - want_emb).max())}
+        if name == "f32":
+            parted = (ids != want_ids) & real
+            rec["argmax_parted"] = int(parted.sum())
+            rec["argmax_parted_ties"] = int((parted & (gap < SD_TIE_GAP)).sum())
+        feats[name] = rec
+        del system
+    out["features"] = feats
+    torch.cuda.empty_cache()
+
+    # ---- (b) training parity ------------------------------------------------------
+    train8 = os.path.join(base, "train8")
+    build_synth_corpus(train8, **ref.TRAIN_SPLIT)
+    tr = SDUtteranceDataset(train8, speaker_map_loc=os.path.join(train8, "speaker_map.json"),
+                            max_segment_duration=ref.TRAIN_MAX_SECS)
+    tb = SDCollater(audio_bucket_seconds=(ref.TRAIN_MAX_SECS,))(
+        [tr[i] for i in range(ref.TRAIN_ITEMS)])
+    system = SDSystem(SDModelConfig(dropout=0.0), TrainConfig(**ref.TRAIN_CFG),
+                      specaug_cfg=no_aug, compute_dtype=f32, device=dev)
+    system.load_params(tree)
+    losses = [float(system.train_step(tb)["loss"]) for _ in range(ref.TRAIN_STEPS)]
+    want = fx["train"]["losses"]
+    out["train_parity"] = {"losses": losses, "jax_losses": want,
+                           "max_rel_err": max(abs(a - b) / abs(b) for a, b in zip(losses, want))}
+    del system
+    torch.cuda.empty_cache()
+
+    # ---- (c) the training CLI -------------------------------------------------------
+    counters = {"fused_logmel_project": fused_logmel_project, "spec_augment": spec_augment}
+    shapes, restore = counted_steps(torch, SDSystem, counters)
+    ckpts = os.path.join(base, "ckpts")
+    argv = ["--train-data", train8, "--valid-data", train8, "--name", "sd",
+            "--checkpoint-path", ckpts, "--max-steps", str(SD_CLI_STEPS), "--device", dev]
+    try:
+        # The main path's run: counts set to 0 just before it, read just after.
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = cli_train_sd.main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+    finally:
+        restore()
+    out["cli"] = {"argv": argv[4:], "steps": res["steps"], "seconds": secs,
+                  "ms_per_step": 1e3 * secs / res["steps"], "losses": res["losses"],
+                  "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                  "launches": launches, "by_shape": shapes,
+                  "checkpoints": len(res["paths"])}
+    sd_ckpt = res["paths"][-1]
+    del res
+    torch.cuda.empty_cache()
+    if trace:
+        profile_call(torch, "sd_baseline_1x:cli.train_sd (5 steps)", cli_train_sd.main,
+                     (["--train-data", train8, "--valid-data", train8, "--name", "sd_traced",
+                       "--checkpoint-path", ckpts, "--max-steps", "5", "--device", dev],))
+
+    # ---- (d) the reconciliation chain ------------------------------------------------
+    system = SDSystem(SDModelConfig(), device=dev)
+    system.load_params(load_pytree(sd_ckpt))
+    transcripts = load_transcripts(test)
+    dumps = os.path.join(base, "dump")
+    dump_shapes = {}
+    fused_logmel_project.launches = 0
+    for stub, utts in sorted(transcripts.items()):
+        audio = load_audio_segment(os.path.join(test, stub + ".wav"))
+        before = fused_logmel_project.launches
+        dump_episode_features(system, audio, utts, dumps, stub)
+        key = f"1x{len(audio)}"
+        dump_shapes[key] = dump_shapes.get(key, 0) + fused_logmel_project.launches - before
+    del system
+    torch.cuda.empty_cache()
+    first = sorted(transcripts)[0]
+    one = os.path.join(base, "one_episode")
+    os.makedirs(one, exist_ok=True)
+    shutil.copy(os.path.join(test, first + ".wav"), one)
+    shutil.copy(os.path.join(test, "speaker_map.json"), one)
+    with open(os.path.join(one, "transcript.pkl"), "wb") as f:
+        pickle.dump({first: transcripts[first]}, f)
+    bpe = os.path.join(root, "accuracy_release", "bpe.model")
+    ckpt = os.path.join(root, "accuracy_release", "avg_last_3.bf16.msgpack")
+    eval_out = os.path.join(base, "eval")
+    argv = ["--train-data", one, "--valid-data", one, "--test-data", one, "--tokenizer", bpe,
+            "--model-type", "1x", "--num-speakers", "8", "--load", ckpt, "--out-dir", eval_out,
+            "--unaligned", "--fused-decode", "--device", dev]
+    _, eval_s, rec = run_eval_counted(torch, argv, {"fused_layer_step": fused_layer_step,
+                                                    "fused_logmel_project": fused_logmel_project})
+    test_result = os.path.join(eval_out, "test_result.pkl")
+    feats_path = os.path.join(dumps, f"{first}.sd_features.npy")
+    ready = os.path.join(base, "wder_ready_sd.pkl")
+    cli_tools.main(["wder-format", "--test-result", test_result, "--out", ready,
+                    "--sd-features", feats_path, "--device", dev])
+    sd_feats = np.load(feats_path)
+    w_gap, n_utts = window_gap(test_result, ready, sd_feats)
+    wder_argv = ["--workers", "1", "--device", dev]
+    cluster_argv = ["--cluster", "--cluster-method", "agglomerative", "--metric", "cos_dist"]
+    fields = cli_wder.main(["--eval-file", ready] + wder_argv)
+    # --sd-features gives each utterance its tokens' window embeddings
+    # [n_tok, 128]; the clustering stacks one row an utterance and raises on
+    # them, as the JAX package's does (ROADMAP C27)
+    try:
+        cli_wder.main(["--eval-file", ready] + wder_argv + cluster_argv)
+        cluster_raises = None
+    except ValueError as e:
+        cluster_raises = str(e)[:120]
+    with open(test_result, "rb") as f:
+        results = pickle.load(f)
+    sd_ids = np.load(os.path.join(dumps, f"{first}.sd_ids.npy"))
+    merged = [(convert_results([(refs, [])])[0][0],
+               merge_asr_sd(hyp_times(hyps), sd_ids, sd_feats)) for refs, hyps in results]
+    merged_ready = os.path.join(base, "wder_ready_merged.pkl")
+    with open(merged_ready, "wb") as f:
+        pickle.dump(merged, f)
+    m_ids = cli_wder.main(["--eval-file", merged_ready] + wder_argv)
+    m_cl = cli_wder.main(["--eval-file", merged_ready] + wder_argv + cluster_argv)
+    with open(os.path.join(dumps, f"{first}.gold_speakers.pkl"), "rb") as f:
+        gold = pickle.load(f)
+    out["chain"] = {
+        "sd_checkpoint": os.path.relpath(sd_ckpt, out_dir), "episodes": len(transcripts),
+        "dump_k2_launches_by_shape": dump_shapes, "sd_frames": int(len(sd_feats)),
+        "gold_frames_known": int(sum(g != -1 for g in gold)),
+        "eval_seconds": eval_s, "launches": rec["launches"],
+        "decode_steps": rec["decode_steps"], "hyp_utterances": n_utts,
+        "window_embed_gap": w_gap,
+        "sd_format_wder_pct": 100 * fields["overall_wder"],
+        "sd_format_wer_pct": 100 * fields["overall_wer"],
+        "sd_format_cluster_raises": cluster_raises,
+        "merge_wder_pct": 100 * m_ids["overall_wder"],
+        "merge_cluster_wder_pct": 100 * m_cl["overall_wder"],
+        "merge_wer_pct": 100 * m_ids["overall_wer"],
+        "merge_sd_speakers": len({s for _, (_, s), _ in merged[0][1]})}
+    emit(out)
+
+    problems = []
+    fe = out["features"]
+    if not fe["f32"]["pad_equal"] or not fe["bf16"]["pad_equal"]:
+        problems.append("the padding mask differs from JAX's")
+    if fe["f32"]["max_abs_err"] > SD_FEATURE_TOL:
+        problems.append(f"f32 embeddings {fe['f32']['max_abs_err']} from JAX's (> {SD_FEATURE_TOL})")
+    if fe["f32"]["argmax_parted"] != fe["f32"]["argmax_parted_ties"]:
+        problems.append(f"f32 argmax parts from JAX's on {fe['f32']['argmax_parted']} frames, "
+                        f"{fe['f32']['argmax_parted_ties']} of them near-ties")
+    if fe["bf16"]["argmax_share"] < SD_ARGMAX_SHARE:
+        problems.append(f"bf16 argmax agreement {fe['bf16']['argmax_share']} < {SD_ARGMAX_SHARE}")
+    if out["train_parity"]["max_rel_err"] > SD_LOSS_TOL:
+        problems.append(f"f32 LAMB losses {out['train_parity']['max_rel_err']} (relative) from "
+                        f"JAX's (> {SD_LOSS_TOL})")
+    cl = out["cli"]
+    if cl["steps"] != SD_CLI_STEPS or not np.isfinite(cl["losses"]).all() \
+            or not cl["losses"][-1] < cl["losses"][0]:
+        problems.append(f"cli.train_sd: {cl['steps']} steps, losses {cl['losses']}")
+    if min(cl["launches"].values()) <= 0:
+        problems.append(f"cli.train_sd launched a kernel no time: {cl['launches']}")
+    ch = out["chain"]
+    if not w_gap <= SD_WINDOW_TOL or n_utts == 0:
+        problems.append(f"window embeddings {w_gap} from the host einsum over {n_utts} "
+                        f"utterances (> {SD_WINDOW_TOL})")
+    for k in ("sd_format_wder_pct", "sd_format_wer_pct", "merge_wder_pct",
+              "merge_cluster_wder_pct", "merge_wer_pct"):
+        if not np.isfinite(ch[k]):
+            problems.append(f"{k} = {ch[k]}")
+    if ch["sd_format_cluster_raises"] is None:
+        problems.append("cli.wder --cluster took per-token window embeddings (C27)")
+    if problems:
+        fail("sd_baseline_1x: " + "; ".join(problems))
+    return out
+
+
+def sd_entries(sd, k1_sm, k2_sm_one, k2_cli):
+    """The speaker baseline's kernels: K2 and K4 in cli.train_sd's run (by
+    batch shape: `k2_cli` "BxT" -> (K2 record, K4 record)), K2 in the
+    episode dump and K1 and K2 in the chain's eval CLI run (one episode: the
+    state machine at B = 1, N = 18001)."""
+    entries = []
+    for shape, n in sd["cli"]["by_shape"].items():
+        k2_rec, k4_rec = k2_cli[shape]
+        entries.append(kernel_entry(f"sd_baseline_1x:train_sd:{shape}", k2_rec,
+                                    n["fused_logmel_project"], k2_rec["max_abs_err"]))
+        entries.append(kernel_entry(f"sd_baseline_1x:train_sd:{shape}", k4_rec,
+                                    n["spec_augment"], k4_rec["max_abs_err"]))
+    ch = sd["chain"]
+    for shape, n in ch["dump_k2_launches_by_shape"].items():
+        entries.append(kernel_entry(f"sd_baseline_1x:dump:{shape}", k2_sm_one, n,
+                                    k2_sm_one["max_abs_err"]))
+    entries += [kernel_entry("sd_baseline_1x:eval", k1_sm, ch["launches"]["fused_layer_step"],
+                             k1_sm["max_abs_err"]["x_out"], "none"),
+                kernel_entry("sd_baseline_1x:eval", k2_sm_one,
+                             ch["launches"]["fused_logmel_project"], k2_sm_one["max_abs_err"])]
+    return entries
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: the neural SAD (PyanNet)
+# ---------------------------------------------------------------------------
+SAD_FIXTURE = os.path.join("tests", "fixtures", "torch_sad_reference.json")
+SAD_ARRAYS = os.path.join("tests", "fixtures", "torch_sad_reference_arrays.npz")
+SAD_SCORE_TOL = 1e-4                  # episode scores against the JAX CPU reference's
+SAD_LOSS_TOL = 1e-3                   # Adam losses against JAX's, of the run's first loss
+SAD_CLI_STEPS = 500                   # scripts/sad_stress.sh's
+SAD_F1_MIN = 90.0
+SAD_JAX_F1 = 99.13                    # ACCURACY.json sad_stress_f1_pct (JAX on the CPU, its init)
+
+
+def run_sad_1x(torch, dev, root, out_dir, card):
+    """The neural SAD on the card (scripts/sad_stress.sh's chain). (a) The
+    stress corpus through `cli.tools synth-sad-stress` (train 6 x 90 s seed
+    0, test 3 x 90 s seed 99): every file's sha256 against the JAX
+    reference's (SAD_FIXTURE). (b) `score_episode` of the seeded tree
+    (scripts/torch_sad_reference.py `seeded_pyannet_tree`) on the test
+    split's first episode against JAX's scores. (c) 25 f32 Adam steps from
+    that tree on default_rng(0)'s batches against JAX's losses: Adam
+    amplifies rounding step by step (the fixture's one-ulp twin of JAX's own
+    run parts from it; ROADMAP C24), so each step's loss is held within
+    SAD_LOSS_TOL of the run's first loss, and its relative gap printed. (d)
+    `python -m tal_asrd_tpu_torch.cli.sad --steps 500` from the port's own
+    initial draw, with no hand-written kernel launched (PyanNet has none):
+    s a step, precision / recall / F1, beside the JAX CPU record; then
+    --load of the written pyannet.msgpack gives the same bounds."""
+    from tal_asrd_tpu_torch.cli import sad as cli_sad
+    from tal_asrd_tpu_torch.cli import tools as cli_tools
+    from tal_asrd_tpu_torch.data.audio_io import load_audio_segment
+    from tal_asrd_tpu_torch.ops.cuda_decode import fused_layer_step
+    from tal_asrd_tpu_torch.ops.cuda_decode_stacked import stacked_decoder_step
+    from tal_asrd_tpu_torch.ops.cuda_kernels import fused_logmel_project
+    from tal_asrd_tpu_torch.ops.specaug import spec_augment
+    from tal_asrd_tpu_torch.vad.pyannet import FRAME_HOP, load_pyannet, score_episode
+
+    ref = reference_script(root, "torch_sad_reference")
+    with open(os.path.join(root, SAD_FIXTURE)) as f:
+        fx = json.load(f)
+    arrays = np.load(os.path.join(root, SAD_ARRAYS))
+    base = os.path.join(out_dir, "sad")
+    out = {"phase": "sad_1x", "card": card}
+
+    # ---- (a) the stress corpus ------------------------------------------------------
+    splits = {}
+    t0 = time.perf_counter()
+    for name, kw in ref.SPLITS.items():
+        splits[name] = os.path.join(base, name)
+        cli_tools.main(["synth-sad-stress", "--out-dir", splits[name], "--episodes",
+                        str(kw["n_episodes"]), "--episode-seconds", str(kw["episode_seconds"]),
+                        "--seed", str(kw["seed"])])
+    hashes = {name: ref.file_hashes(path) for name, path in splits.items()}
+    out["corpus"] = {"seconds": time.perf_counter() - t0,
+                     "files": sum(len(h) for h in hashes.values()),
+                     "sha256_equal": hashes == fx["corpus"]["sha256"]}
+
+    # ---- (b) episode scores ---------------------------------------------------------------
+    tree = ref.seeded_pyannet_tree()
+    model = load_pyannet(tree, dev)
+    wav = np.asarray(load_audio_segment(os.path.join(splits["test"], "ep0.wav")), np.float32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scores = score_episode(model, wav, window_s=ref.WINDOW_S, batch=ref.SCORE_BATCH)
+    torch.cuda.synchronize()
+    want = arrays["scores/ep0"]
+    out["scores"] = {"frames": int(len(scores)), "seconds": time.perf_counter() - t0,
+                     "max_abs_err": float(np.abs(scores - want).max())
+                     if scores.shape == want.shape else float("inf")}
+
+    # ---- (c) training parity --------------------------------------------------------------
+    train = cli_sad.load_split(splits["train"])
+    model = load_pyannet(tree, dev)
+    losses = cli_sad.train_steps(model, train, ref.TRAIN_STEPS, ref.TRAIN_BATCH,
+                                 fx["train"]["window_samples"], ref.TRAIN_LR, ref.TRAIN_SEED,
+                                 log=lambda _: None)
+    jl, twin = fx["train"]["losses"], fx["train"]["twin_losses"]
+    out["train_parity"] = {
+        "losses": losses, "jax_losses": jl,
+        "rel_err": [abs(a - b) / b for a, b in zip(losses, jl)],
+        "twin_rel_err": [abs(a - b) / b for a, b in zip(twin, jl)],
+        "max_err_of_first_loss": max(abs(a - b) for a, b in zip(losses, jl)) / jl[0]}
+    del model
+
+    # ---- (d) the CLI --------------------------------------------------------------------------
+    counters = {"fused_layer_step": fused_layer_step, "stacked_decoder_step": stacked_decoder_step,
+                "fused_logmel_project": fused_logmel_project, "spec_augment": spec_augment}
+    real_steps, timed = cli_sad.train_steps, {}
+
+    def timed_steps(*args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = real_steps(*args, **kwargs)
+        torch.cuda.synchronize()
+        timed["seconds"] = time.perf_counter() - t
+        return res
+    cli_sad.train_steps = timed_steps
+    runs = {}
+    try:
+        for fn in counters.values():
+            fn.launches = 0
+        for name, extra in (("trained", ["--steps", str(SAD_CLI_STEPS)]),
+                            ("loaded", ["--load", os.path.join(base, "trained",
+                                                               "pyannet.msgpack")])):
+            o = os.path.join(base, name)
+            t0 = time.perf_counter()
+            res = cli_sad.main(["--train-data", splits["train"], "--test-data", splits["test"],
+                                "--out-dir", o, "--json-out", o + ".json", "--device", dev]
+                               + extra)
+            torch.cuda.synchronize()
+            runs[name] = {"seconds": time.perf_counter() - t0, "metrics": res["metrics"],
+                          "bounds": res["bounds"], "losses": res["losses"]}
+        launches = {k: fn.launches for k, fn in counters.items()}
+    finally:
+        cli_sad.train_steps = real_steps
+    tr = runs["trained"]
+    out["cli"] = {"steps": SAD_CLI_STEPS, "seconds": tr["seconds"],
+                  "train_seconds": timed["seconds"],
+                  "s_per_step": timed["seconds"] / SAD_CLI_STEPS,
+                  "first_loss": tr["losses"][0], "last_loss": tr["losses"][-1],
+                  "metrics": tr["metrics"], "jax_cpu_sad_stress_f1_pct": SAD_JAX_F1,
+                  "regions": sum(len(b) for b in tr["bounds"].values()),
+                  "load_seconds": runs["loaded"]["seconds"],
+                  "load_bounds_equal": runs["loaded"]["bounds"] == tr["bounds"],
+                  "load_metrics_equal": runs["loaded"]["metrics"] == tr["metrics"],
+                  "kernel_launches": launches, "frame_hop": FRAME_HOP}
+    emit(out)
+
+    problems = []
+    if not out["corpus"]["sha256_equal"]:
+        problems.append("the stress corpus's files differ from JAX's")
+    if not out["scores"]["max_abs_err"] <= SAD_SCORE_TOL:
+        problems.append(f"scores {out['scores']['max_abs_err']} from JAX's (> {SAD_SCORE_TOL})")
+    if not out["train_parity"]["max_err_of_first_loss"] <= SAD_LOSS_TOL:
+        problems.append(f"Adam losses {out['train_parity']['max_err_of_first_loss']} of the "
+                        f"first loss from JAX's (> {SAD_LOSS_TOL})")
+    cl = out["cli"]
+    if not cl["metrics"] or cl["metrics"]["sad_f1_pct"] < SAD_F1_MIN:
+        problems.append(f"cli.sad F1 {cl['metrics']} < {SAD_F1_MIN}")
+    if not (cl["load_bounds_equal"] and cl["load_metrics_equal"]):
+        problems.append("cli.sad --load of its own pyannet.msgpack gives other bounds")
+    if any(launches.values()):
+        problems.append(f"PyanNet launched a hand-written kernel: {launches}")
+    if problems:
+        fail("sad_1x: " + "; ".join(problems))
+    return out
+
+
 def cluster_entries(cl, k1_rec, k2_eval):
     """The clustering chain's kernels: K1 and K2 in its eval CLI run (the
     eval_aligned_1x shapes)."""
@@ -3922,7 +4418,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default="all",
                     choices=("all", "kernels", "train", "eval", "unaligned", "train_cli",
-                             "lm", "spk", "noncausal", "embed", "cluster"),
+                             "lm", "spk", "noncausal", "embed", "cluster", "sd", "sad"),
                     help="'kernels' stops after the build and the kernel checks; "
                          "'train' skips the serving and eval phases; 'eval' runs "
                          "eval_aligned_1x after the kernel checks, nothing else; "
@@ -3930,13 +4426,14 @@ def main() -> None:
                          "'train_cli' runs train_cli_1x after them; 'lm' runs "
                          "lm_fusion_1x after them; 'spk' runs spk_head_1x after them; "
                          "'noncausal' runs noncausal_1x after them; 'embed' runs "
-                         "embed_1x after them; 'cluster' runs cluster_1x after them")
+                         "embed_1x after them; 'cluster' runs cluster_1x after them; "
+                         "'sd' runs sd_baseline_1x after them; 'sad' runs sad_1x after them")
     ap.add_argument("--profile", action="store_true",
                     help="also trace one fused greedy generate per model, each eval "
                          "CLI run, one 2x training step, the training CLI's second "
-                         "run, each fused leg with the seeded LM and the speaker "
-                         "head's bf16 aligned run with torch.profiler and print "
-                         "where the time goes")
+                         "run, each fused leg with the seeded LM, the speaker "
+                         "head's bf16 aligned run and 5 steps of cli.train_sd with "
+                         "torch.profiler and print where the time goes")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -4143,7 +4640,22 @@ def main() -> None:
     if args.phases in ("all", "cluster"):
         entries += cluster_entries(run_cluster_1x(torch, dev, root, out_dir, card),
                                    k1_rec, k2_eval)
-    if args.phases in ("noncausal", "embed", "cluster"):
+    # ---- 13. the speaker baseline and its reconciliation ----------------------------
+    if args.phases in ("all", "sd"):
+        sd = run_sd_baseline_1x(torch, dev, root, out_dir, card, trace=args.profile)
+        # K2 and K4 at each batch shape of cli.train_sd's run; K2 at one
+        # episode of 180 s (the dump and the chain's eval run)
+        k2_cli = {}
+        for shape in sd["cli"]["by_shape"]:
+            b, t = map(int, shape.split("x"))
+            k2_cli[shape] = (check_logmel(torch, dev, b, t), check_specaug(
+                torch, dev, b, spec_in=torch.randn((b, 1 + t // 160, 80), device=dev)))
+        k2_one = check_logmel(torch, dev, 1, SM_EPISODE_SAMPLES)
+        entries += sd_entries(sd, k1_long[("sm", 1)], k2_one, k2_cli)
+    # ---- 14. the neural SAD ------------------------------------------------------------
+    if args.phases in ("all", "sad"):
+        run_sad_1x(torch, dev, root, out_dir, card)
+    if args.phases in ("noncausal", "embed", "cluster", "sd", "sad"):
         shutil.rmtree(out_dir, ignore_errors=True)
         finish(torch, entries, card, t_start)
         return

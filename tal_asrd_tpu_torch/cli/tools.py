@@ -3,6 +3,7 @@
     python -m tal_asrd_tpu_torch.cli.tools average-ckpt --ckpt-dir DIR --last-k 3 --out F
     python -m tal_asrd_tpu_torch.cli.tools expand-speakers --ckpt F --num-tokens N --out G
     python -m tal_asrd_tpu_torch.cli.tools synth-corpus --out-dir DIR [--episodes 8 ...]
+    python -m tal_asrd_tpu_torch.cli.tools synth-sad-stress --out-dir DIR [--episodes 6 ...]
     python -m tal_asrd_tpu_torch.cli.tools train-tokenizer --input TXT --model-prefix P
     python -m tal_asrd_tpu_torch.cli.tools chunk-audio --src WAV_OR_GLOB --out-dir DIR
     python -m tal_asrd_tpu_torch.cli.tools convert-audio --src FILE_OR_GLOB --out-dir DIR
@@ -19,7 +20,8 @@ grows a checkpoint's embedding table for new speaker tokens,
 `merge-outputs` joins jsonl shards into one pickle, `librispeech-format`
 lays a LibriSpeech split out as a transcript.pkl corpus (one episode a
 chapter), `wder-format` turns a test_result.pkl into the wder-ready pickle
-(with --sd-features, attention-windowed embeddings on --device). The
+(with --sd-features, attention-windowed embeddings on --device),
+`synth-sad-stress` writes the SAD stress corpus (data/synth.py). The
 reference's other subcommands are not ported yet: they exit non-zero
 naming the ROADMAP item that ports them (`UNPORTED`).
 """
@@ -35,7 +37,6 @@ from typing import List, Optional
 
 UNPORTED = {
     "diar-features": "A17 (diarization features)",
-    "synth-sad-stress": "A18 (build_sad_stress_corpus)",
 }
 
 
@@ -162,6 +163,18 @@ def main(argv: Optional[List[str]] = None) -> None:
     sy.add_argument("--speakers", type=int, default=4)
     sy.add_argument("--seed", type=int, default=0)
 
+    ss = sub.add_parser("synth-sad-stress",
+                        help="SAD stress corpus: noise floor, SNR sweep, "
+                             "crossfaded bounds, hum/burst distractors")
+    ss.add_argument("--out-dir", required=True)
+    ss.add_argument("--episodes", type=int, default=6)
+    ss.add_argument("--episode-seconds", type=float, default=90.0)
+    ss.add_argument("--speakers", type=int, default=8)
+    ss.add_argument("--seed", type=int, default=0)
+    ss.add_argument("--snr-low", type=float, default=0.0)
+    ss.add_argument("--snr-high", type=float, default=20.0)
+    ss.add_argument("--noise-rms", type=float, default=0.02)
+
     for name, item in UNPORTED.items():
         sub.add_parser(name, help=f"not ported yet: ROADMAP {item}")
 
@@ -257,6 +270,18 @@ def main(argv: Optional[List[str]] = None) -> None:
                                 n_speakers=args.speakers, seed=args.seed)
         n_utts = sum(len(u) for u in tr.values())
         print(f"wrote {len(tr)} episodes ({n_utts} utterances) to {args.out_dir}")
+
+    elif args.cmd == "synth-sad-stress":
+        from tal_asrd_tpu_torch.data.synth import build_sad_stress_corpus
+
+        tr = build_sad_stress_corpus(
+            args.out_dir, n_episodes=args.episodes,
+            episode_seconds=args.episode_seconds, n_speakers=args.speakers,
+            seed=args.seed, snr_db=(args.snr_low, args.snr_high),
+            noise_rms=args.noise_rms)
+        n_utts = sum(len(u) for u in tr.values())
+        print(f"wrote {len(tr)} stress episodes ({n_utts} utterances) "
+              f"to {args.out_dir}")
 
 
 if __name__ == "__main__":

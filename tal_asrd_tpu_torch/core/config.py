@@ -1,5 +1,5 @@
-"""Typed configuration for the frontend, the model, the shallow-fusion LM,
-SpecAugment, training and decoding.
+"""Typed configuration for the frontend, the model, the speaker baseline,
+the shallow-fusion LM, SpecAugment, training and decoding.
 
 Own copy of the dataclasses the serving, training and evaluation paths read
 (counterpart: tal_asrd_tpu/core/config.py). Field names and defaults are the
@@ -108,6 +108,25 @@ class ModelConfig:
     @property
     def time_reduction(self) -> int:
         return 2 ** (len(self.tds_channels) - 1)
+
+
+@dataclass(frozen=True)
+class SDModelConfig:
+    """The separate speaker-diarization baseline (models/sd.py): the ASR
+    model's TDS encoder under a 128-dim frame embedding and a speaker
+    classifier over the whole inventory (6008 speakers)."""
+
+    num_speakers: int = 6008
+    n_mels: int = 80
+    dropout: float = 0.2
+    embed_size: int = 128
+    tds_depths: Tuple[int, ...] = (2, 3, 6)
+    tds_kernel: int = 21
+
+    @property
+    def tds_channels(self) -> Tuple[int, ...]:
+        n = self.n_mels
+        return (n, 10 * n, 14 * n, 18 * n)
 
 
 @dataclass(frozen=True)

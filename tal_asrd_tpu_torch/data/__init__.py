@@ -9,7 +9,8 @@ from tal_asrd_tpu_torch.data.audio_io import (
 from tal_asrd_tpu_torch.data.aligned import AlignedDataset
 from tal_asrd_tpu_torch.data.segment import SegmentDataset
 from tal_asrd_tpu_torch.data.audio import RandomSegmentDataset
-from tal_asrd_tpu_torch.data.collate import BucketedCollater, pick_bucket
+from tal_asrd_tpu_torch.data.baseline_speaker import SDUtteranceDataset
+from tal_asrd_tpu_torch.data.collate import BucketedCollater, SDCollater, pick_bucket
 from tal_asrd_tpu_torch.data.loader import DataLoader, DevicePrefetcher, ShardedSampler
 from tal_asrd_tpu_torch.data.format import tokenize_utterances, tokenize_utterances_word_align
 from tal_asrd_tpu_torch.data.transcript import (
@@ -27,7 +28,9 @@ __all__ = [
     "AlignedDataset",
     "SegmentDataset",
     "RandomSegmentDataset",
+    "SDUtteranceDataset",
     "BucketedCollater",
+    "SDCollater",
     "pick_bucket",
     "DataLoader",
     "DevicePrefetcher",

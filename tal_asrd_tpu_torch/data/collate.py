@@ -10,6 +10,10 @@ features. Masks and lengths carry the true sizes.
 Output batches are dicts of numpy arrays:
   audio [B, T_bucket] f32, audio_lens [B] i32, text [B, L_bucket] i32,
   text_mask [B, L_bucket] bool, spk_ids [B, L_bucket] i32, idx [B] i32
+
+`SDCollater` batches the speaker baseline's (wav, speaker id, index)
+samples: audio padded to a 5 / 10 / 20 s bucket (cut to the last), audio_lens,
+speaker [B] i32, idx [B] i32.
 """
 from __future__ import annotations
 
@@ -18,6 +22,11 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 
 from tal_asrd_tpu_torch.data.audio_io import DEFAULT_SR
+
+
+def pcm16(w: np.ndarray) -> np.ndarray:
+    """Float audio in [-1, 1] -> int16 PCM (rounded, clipped)."""
+    return np.clip(np.rint(w * 32768.0), -32768, 32767).astype(np.int16)
 
 
 def pick_bucket(n: int, buckets: Sequence[int]) -> int:
@@ -64,11 +73,7 @@ class BucketedCollater:
         for i, (w, t, s) in enumerate(zip(wavs, texts, spks)):
             wlen = min(len(w), t_bucket) if self.truncate else len(w)
             tlen = min(len(t), l_bucket) if self.truncate else len(t)
-            audio[i, :wlen] = (
-                np.clip(np.rint(w[:wlen] * 32768.0), -32768, 32767)
-                .astype(np.int16)
-                if self.audio_int16 else w[:wlen]
-            )
+            audio[i, :wlen] = pcm16(w[:wlen]) if self.audio_int16 else w[:wlen]
             audio_lens[i] = wlen
             text[i, :tlen] = t[:tlen]
             text_mask[i, :tlen] = True
@@ -80,5 +85,32 @@ class BucketedCollater:
             "text": text,
             "text_mask": text_mask,
             "spk_ids": spk_ids,
+            "idx": np.asarray(idxs, np.int32),
+        }
+
+
+class SDCollater:
+    """Speaker-ID batches for SDModel training (data/baseline_speaker.py)."""
+
+    def __init__(self, audio_bucket_seconds: Sequence[float] = (5, 10, 20),
+                 sample_rate: int = DEFAULT_SR, audio_int16: bool = False):
+        self.audio_buckets = [int(s * sample_rate) for s in audio_bucket_seconds]
+        self.audio_int16 = audio_int16
+
+    def __call__(self, samples):
+        wavs, sids, idxs = zip(*samples)
+        b = len(wavs)
+        t_bucket = pick_bucket(max(len(w) for w in wavs), self.audio_buckets)
+        audio = np.zeros((b, t_bucket),
+                         np.int16 if self.audio_int16 else np.float32)
+        audio_lens = np.zeros((b,), np.int32)
+        for i, w in enumerate(wavs):
+            wlen = min(len(w), t_bucket)
+            audio[i, :wlen] = pcm16(w[:wlen]) if self.audio_int16 else w[:wlen]
+            audio_lens[i] = wlen
+        return {
+            "audio": audio,
+            "audio_lens": audio_lens,
+            "speaker": np.asarray(sids, np.int32),
             "idx": np.asarray(idxs, np.int32),
         }

@@ -1,8 +1,8 @@
 """Synthetic-speech corpus generator for self-contained accuracy loops.
 
 Counterpart of tal_asrd_tpu/data/synth.py (`build_synth_corpus`,
-`corpus_text`): the same seed writes the same wav bytes, transcript.pkl and
-speaker_map.json. The corpus has the reference corpus format
+`build_sad_stress_corpus`, `corpus_text`): the same seed writes the same wav
+bytes, transcript.pkl and speaker_map.json. The corpus has the reference corpus format
 (transcript.pkl utterance dicts + speaker_map.json + episode wavs), and its
 audio deterministically ENCODES the text, so a model trained on a train split
 generalizes to held-out episodes and corpus WER/WDER is a real regression
@@ -19,7 +19,7 @@ from __future__ import annotations
 import json
 import os
 import pickle
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -197,6 +197,118 @@ def build_synth_corpus(
         json.dump({name: i for i, name in enumerate(speakers)}, f)
     return transcripts
 
+
+def build_sad_stress_corpus(
+    root: str,
+    n_episodes: int = 6,
+    episode_seconds: float = 90.0,
+    n_speakers: int = 8,
+    seed: int = 0,
+    sr: int = SR,
+    snr_db: Tuple[float, float] = (0.0, 20.0),
+    noise_rms: float = 0.02,
+    crossfade_s: float = 0.25,
+    distractor_rate: float = 0.5,
+) -> dict:
+    """SAD stress corpus: the plain synthetic corpus is nearly
+    energy-separable, so any detector scores F1 near 99.9. This variant
+    takes the trivial cues away:
+
+      * a continuous noise floor (`noise_rms`) instead of near-silence;
+      * a per-utterance SNR drawn from `snr_db` against the floor: the
+        quietest utterances sit at the floor;
+      * utterance edges crossfaded by half-cosine ramps (`crossfade_s`)
+        while the gold bounds stay nominal;
+      * non-speech distractors between utterances, absent from the
+        transcript: hum-only segments (a speaker's fundamental and two
+        harmonics, no character tones) and broadband bursts, at speech-like
+        energies.
+
+    Same layout as build_synth_corpus (episode wavs + transcript.pkl +
+    speaker_map.json); each utterance dict also holds its `snr_db`."""
+    rng = np.random.RandomState(seed)
+    os.makedirs(root, exist_ok=True)
+    speakers = SPEAKER_NAMES[:n_speakers]
+    transcripts = {}
+    n_fade = int(crossfade_s * sr)
+
+    def _distractor() -> np.ndarray:
+        dur = float(rng.uniform(0.5, 2.0))
+        n = int(dur * sr)
+        t = np.arange(n) / sr
+        if rng.rand() < 0.5:
+            # hum-only: a random speaker's fundamental + 2 harmonics
+            hum_f = 90.0 + 15.0 * rng.randint(0, n_speakers) \
+                + float(rng.uniform(-5.0, 5.0))
+            seg = (0.5 * np.sin(2 * np.pi * hum_f * t)
+                   + 0.3 * np.sin(2 * np.pi * 2 * hum_f * t)
+                   + 0.15 * np.sin(2 * np.pi * 3 * hum_f * t))
+        else:
+            seg = rng.randn(n)  # broadband burst
+        seg = seg / (np.sqrt(np.mean(seg ** 2)) + 1e-9)
+        snr = float(rng.uniform(*snr_db))
+        seg = seg * noise_rms * 10.0 ** (snr / 20.0)
+        ramp = min(n // 4, n_fade)
+        env = np.ones(n)
+        env[:ramp] = 0.5 - 0.5 * np.cos(np.pi * np.arange(ramp) / ramp)
+        env[-ramp:] = env[:ramp][::-1]
+        return (seg * env).astype(np.float32)
+
+    for e in range(n_episodes):
+        stub = f"ep{e}"
+        chunks: List[np.ndarray] = []
+        utts = []
+        t = 0.5
+        chunks.append((rng.randn(int(t * sr)) * noise_rms).astype(np.float32))
+        while t < episode_seconds - 10.0:
+            if rng.rand() < distractor_rate:
+                d = _distractor()
+                chunks.append(d + (rng.randn(len(d)) * noise_rms
+                                   ).astype(np.float32))
+                t += len(d) / sr
+            text = random_sentence(rng)
+            spk = int(rng.randint(0, n_speakers))
+            wav = render_utterance(text, spk, rng, sr).astype(np.float64)
+            # target SNR vs the noise floor
+            rms = float(np.sqrt(np.mean(wav ** 2))) + 1e-9
+            snr = float(rng.uniform(*snr_db))
+            wav = wav * (noise_rms * 10.0 ** (snr / 20.0) / rms)
+            # crossfaded edges: energy ramps across the gold boundary
+            ramp = min(len(wav) // 4, n_fade)
+            if ramp > 1:
+                env = np.ones(len(wav))
+                env[:ramp] = 0.5 - 0.5 * np.cos(np.pi * np.arange(ramp) / ramp)
+                env[-ramp:] = env[:ramp][::-1]
+                wav = wav * env
+            dur = len(wav) / sr
+            utts.append({
+                "utterance": text,
+                "speaker": speakers[spk],
+                "utterance_start": float(t),
+                "utterance_end": float(t + dur),
+                "role": ROLES[int(rng.randint(0, len(ROLES)))],
+                "snr_db": snr,
+            })
+            chunks.append((wav + rng.randn(len(wav)) * noise_rms
+                           ).astype(np.float32))
+            gap = UTT_GAP_SECONDS + float(rng.rand()) * 0.6
+            chunks.append((rng.randn(int(gap * sr)) * noise_rms
+                           ).astype(np.float32))
+            t += dur + gap
+        audio = np.concatenate(chunks)
+        want = int(episode_seconds * sr)
+        if len(audio) < want:
+            audio = np.concatenate(
+                [audio,
+                 (rng.randn(want - len(audio)) * noise_rms).astype(np.float32)])
+        write_wav(os.path.join(root, stub + ".wav"), audio[:want], sr)
+        transcripts[stub] = utts
+
+    with open(os.path.join(root, "transcript.pkl"), "wb") as f:
+        pickle.dump(transcripts, f)
+    with open(os.path.join(root, "speaker_map.json"), "w") as f:
+        json.dump({name: i for i, name in enumerate(speakers)}, f)
+    return transcripts
 
 def corpus_text(root: str) -> List[str]:
     """All utterance texts in a corpus (for tokenizer/LM training)."""

@@ -65,8 +65,9 @@ def test_the_long_form_modules_are_among_the_checked_ones():
             "tal_asrd_tpu_torch.vad.webrtc_gmm", "tal_asrd_tpu_torch.vad.windows",
             "tal_asrd_tpu_torch.vad.eval", "tal_asrd_tpu_torch.vad.pipeline",
             "tal_asrd_tpu_torch.cli.vad", "tal_asrd_tpu_torch.cli.transcribe"} <= mods
-    # the neural SAD is not ported (ROADMAP A18)
-    assert not {"tal_asrd_tpu_torch.vad.sad", "tal_asrd_tpu_torch.vad.pyannet"} & mods
+    # the neural SAD (ROADMAP A18) is ported too
+    assert {"tal_asrd_tpu_torch.vad.sad", "tal_asrd_tpu_torch.vad.pyannet",
+            "tal_asrd_tpu_torch.cli.sad"} <= mods
 
 
 def test_the_training_cli_modules_are_among_the_checked_ones():
@@ -97,6 +98,58 @@ def test_the_reference_decode_and_embedding_modules_are_among_the_checked_ones()
                        (train, ("ContrastiveCollator", "ContrastiveDataset", "EmbedSystem")),
                        (data, ("RandomSegmentDataset",))):
         assert set(names) <= set(pkg.__all__) and all(hasattr(pkg, n) for n in pkg.__all__)
+
+
+def test_the_speaker_baseline_and_sad_modules_are_among_the_checked_ones():
+    mods = set(_port_modules())
+    assert {"tal_asrd_tpu_torch.models.sd", "tal_asrd_tpu_torch.baseline",
+            "tal_asrd_tpu_torch.baseline.sd_system", "tal_asrd_tpu_torch.baseline.reconcile",
+            "tal_asrd_tpu_torch.data.baseline_speaker", "tal_asrd_tpu_torch.cli.train_sd",
+            "tal_asrd_tpu_torch.vad.pyannet", "tal_asrd_tpu_torch.vad.sad",
+            "tal_asrd_tpu_torch.cli.sad"} <= mods
+    import tal_asrd_tpu_torch.baseline as baseline
+    import tal_asrd_tpu_torch.data as data
+    import tal_asrd_tpu_torch.vad as vad
+    from tal_asrd_tpu_torch.cli import tools
+    for pkg, names in ((baseline, ("SDSystem", "dump_episode_features", "frame_gold_speakers",
+                                   "merge_asr_sd", "utterance_frame_span")),
+                       (data, ("SDUtteranceDataset", "SDCollater")),
+                       (vad, ("PyanNet", "SincConv", "score_episode", "frame_labels",
+                              "n_frames", "binarize", "export_corpus", "to_rttm", "to_uem"))):
+        assert set(names) <= set(pkg.__all__) and all(hasattr(pkg, n) for n in pkg.__all__)
+    assert "synth-sad-stress" not in tools.UNPORTED
+
+
+@pytest.mark.parametrize("script,call", [
+    ("torch_sd_reference.py",
+     "t = mod.seeded_sd_tree({'encoder': {'w': np.ones(3, np.float32)}}, 0, num_speakers=5,\n"
+     "                       embed_size=4, enc_channels=6)\n"
+     "assert t['spk_logit_proj']['kernel'].shape == (4, 5)\n"
+     "assert t['encoder']['w'].dtype == np.float32\n"),
+    ("torch_sad_reference.py",
+     "t = mod.seeded_pyannet_tree(0)\n"
+     "assert t['OptimizedLSTMCell_3']['ii']['kernel'].shape == (256, 128)\n"
+     "assert t['Conv_0']['kernel'].shape == (5, 80, 60)\n")])
+def test_the_baseline_reference_scripts_build_their_trees_with_numpy_alone(script, call):
+    """scripts/torch_sd_reference.py's `seeded_sd_tree` and
+    scripts/torch_sad_reference.py's `seeded_pyannet_tree` (chip_smoke.py
+    rebuilds both on the card) import numpy only."""
+    code = (
+        "import importlib.util, sys\n"
+        "import numpy as np\n"
+        f"spec = importlib.util.spec_from_file_location('r', {os.path.join(ROOT, 'scripts', script)!r})\n"
+        "mod = importlib.util.module_from_spec(spec); spec.loader.exec_module(mod)\n"
+        + call +
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'tal_asrd_tpu', 'tal_asrd_tpu_torch', 'torch'))\n"
+        "print('BAD=' + ','.join(bad))\n"
+    )
+    site_dirs = [p for p in sys.path if p.endswith("site-packages")]
+    boot = f"import sys; sys.path.extend({site_dirs!r})\n"
+    res = subprocess.run([sys.executable, "-S", "-E", "-c", boot + code],
+                         capture_output=True, text=True, cwd=ROOT, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert "BAD=\n" in res.stdout + "\n", res.stdout
 
 
 def test_the_speaker_head_reference_script_builds_its_tree_with_numpy_alone():
@@ -188,9 +241,13 @@ def test_no_port_file_names_sklearn_or_joblib():
                                     "cli.gen_embed", "cli.train_embed", "EmbedSystem",
                                     "cli.wder", "cli.wder_search", "cli.tools wder-format",
                                     "cluster_embeddings", "apply_embed_head",
-                                    "convert_results"])
+                                    "convert_results", "cli.train_sd", "cli.sad", "SDModel",
+                                    "SDSystem", "PyanNet"])
 def test_entry_points_default_to_cuda(target):
+    from tal_asrd_tpu_torch.baseline import SDSystem
+    from tal_asrd_tpu_torch.cli import sad as cli_sad
     from tal_asrd_tpu_torch.cli import train_embed as cli_train_embed
+    from tal_asrd_tpu_torch.cli import train_sd as cli_train_sd
     from tal_asrd_tpu_torch.cli import transcribe as cli_transcribe
     from tal_asrd_tpu_torch.cli import wder as cli_wder
     from tal_asrd_tpu_torch.cli import wder_search as cli_wder_search
@@ -204,6 +261,8 @@ def test_entry_points_default_to_cuda(target):
     from tal_asrd_tpu_torch.eval.wder_search import apply_embed_head
     from tal_asrd_tpu_torch.models.asr import ASRModel
     from tal_asrd_tpu_torch.models.lm import DecoderLMModel
+    from tal_asrd_tpu_torch.models.sd import SDModel
+    from tal_asrd_tpu_torch.vad.pyannet import PyanNet
     from tal_asrd_tpu_torch.train.embed_system import EmbedSystem
     from tal_asrd_tpu_torch.train.lm_system import LMSystem
     from tal_asrd_tpu_torch.train.system import ASRSystem
@@ -225,6 +284,10 @@ def test_entry_points_default_to_cuda(target):
                                                          "--valid-data", "v.pkl"]),
         "cli.wder": (cli_wder.get_parser, ["--eval-file", "r.pkl"]),
         "cli.wder_search": (cli_wder_search.get_parser, ["--eval-file", "r.pkl"]),
+        "cli.train_sd": (cli_train_sd.get_parser, ["--train-data", "d", "--valid-data", "d",
+                                                   "--name", "n"]),
+        "cli.sad": (cli_sad.get_parser, ["--train-data", "d", "--test-data", "d",
+                                         "--out-dir", "o"]),
     }
     if target == "cli.tools wder-format":
         import tal_asrd_tpu_torch.cli.tools as cli_tools
@@ -239,7 +302,8 @@ def test_entry_points_default_to_cuda(target):
           "Transcriber": Transcriber.__init__, "DecoderLMModel": DecoderLMModel.__init__,
           "LMSystem": LMSystem.__init__, "EmbedSystem": EmbedSystem.__init__,
           "cluster_embeddings": cluster_embeddings, "apply_embed_head": apply_embed_head,
-          "convert_results": convert_results}[target]
+          "convert_results": convert_results, "SDModel": SDModel.__init__,
+          "SDSystem": SDSystem.__init__, "PyanNet": PyanNet.__init__}[target]
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
