@@ -14,6 +14,8 @@
     python3 chip_smoke.py --phases cluster   # ... + the embedding chain's clustering half only
     python3 chip_smoke.py --phases sd        # ... + the speaker baseline and its reconciliation only
     python3 chip_smoke.py --phases sad       # ... + the neural SAD only
+    python3 chip_smoke.py --phases diar      # ... + first diarization (UIS-RNN) only
+    python3 chip_smoke.py --phases align     # ... + forced alignment only
 
 Builds the port's CUDA kernels from tal_asrd_tpu_torch/csrc/ with nvcc, holds
 each against its plain PyTorch version on the card at the shapes its paths
@@ -125,6 +127,20 @@ PyanNet's scores and 25 Adam steps from scripts/torch_sad_reference.py's
 tal_asrd_tpu_torch.cli.sad --steps 500` and its --load (PyanNet launches no
 hand-written kernel).
 
+Then first diarization (`diar_1x`, `--phases diar`, scripts/uisrnn_der.sh's
+chain): `cli.tools diar-features --features logmel` over the train split
+cut to 10 episodes (K2 one launch an episode) against the JAX CLI's
+pickles, `--features wav2vec` at full width from a converted seeded tree,
+UIS-RNN's fit steps one at a time from JAX's states and its traces on
+JAX's trained tree (tests/fixtures/torch_diar_reference*), `python -m
+tal_asrd_tpu_torch.cli.uisrnn --mode kfold` at the script's flags (its DER
+in the band of the JAX CLI's two seeds), a traced window, `--mode stream`
+with a resume, and fit / predict at the CLI's default width. Then forced
+alignment (`align_1x`, `--phases align`): `full_force_align` of the
+tracked checkpoint in f32 over the test split (K2 one launch an
+utterance), against the JAX CPU reference's alignments
+(tests/fixtures/torch_align_reference*), and MFCCs of its episodes.
+
 Then it runs the training CLI (`train_cli_1x`): `python -m
 tal_asrd_tpu_torch.cli.train`'s `main` at scripts/accuracy.sh's last
 phase's flags (B = 16, --max-secs 28.5, --shiftaug --cache-items
@@ -141,7 +157,8 @@ K4 at [16, 3001, 80], both on int16 audio.
 Prints one JSON object per line: `device`, one `kernel` line per check,
 `k3_vs_k1_chain`, `k1_determinism`, `k3_determinism`, `kernel_timing`, one `serve_*` line per configuration,
 `eval_aligned_1x`, `prefill_handoff`, `eval_unaligned_1x`, `lm_fusion_1x`, `spk_head_1x`,
-`noncausal_1x`, `embed_1x`, `cluster_1x`, `sd_baseline_1x`, `sad_1x`, `train_2x`, `train_1x_checkpoint`, `train_cli_1x`, `kernels` (every kernel of each path with
+`noncausal_1x`, `embed_1x`, `cluster_1x`, `sd_baseline_1x`, `sad_1x`, `diar_1x`,
+`align_1x`, `train_2x`, `train_1x_checkpoint`, `train_cli_1x`, `kernels` (every kernel of each path with
 its launch count in that path's one timed run, its error against the plain
 version, its time, the plain version's, a library call's where one exists,
 and the least time the card could take), and last
@@ -154,8 +171,10 @@ Imports torch and the port only — nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
+import io
 import json
 import os
 import pickle
@@ -227,9 +246,10 @@ def bound(bytes_moved: float, flops: float, dtype_name: str):
 # ---------------------------------------------------------------------------
 # Phase 2: fused_logmel_project
 # ---------------------------------------------------------------------------
-def check_logmel(torch, dev, b, samples=WINDOW_SAMPLES, audio=None):
+def check_logmel(torch, dev, b, samples=WINDOW_SAMPLES, audio=None, power=None):
     """Kernel vs plain version and timings at N = b x num_frames(samples),
-    on seeded normal audio or on `audio` ([b, samples] f32 on the card)."""
+    on seeded normal audio or on `audio` ([b, samples] f32 on the card), or
+    at the rows of `power` ([N, n_freqs] f32 on the card) as they are."""
     from tal_asrd_tpu_torch.core.config import FrontendConfig
     from tal_asrd_tpu_torch.ops.cuda_kernels import (
         fused_logmel_project, logmel_project_plain)
@@ -237,12 +257,13 @@ def check_logmel(torch, dev, b, samples=WINDOW_SAMPLES, audio=None):
 
     cfg = FrontendConfig()
     rng = np.random.default_rng(SEED)
-    if audio is None:
-        audio = torch.from_numpy(
-            (rng.standard_normal((b, samples)) * 0.1).astype(np.float32)).to(dev)
-    power = power_spectrogram(audio, cfg)
-    n = power.shape[0] * power.shape[1]
-    power = power.reshape(n, power.shape[2]).contiguous()
+    if power is None:
+        if audio is None:
+            audio = torch.from_numpy(
+                (rng.standard_normal((b, samples)) * 0.1).astype(np.float32)).to(dev)
+        power = power_spectrogram(audio, cfg)
+        power = power.reshape(-1, power.shape[2]).contiguous()
+    n = power.shape[0]
     fb = torch.from_numpy(mel_filterbank(
         cfg.n_fft // 2 + 1, cfg.f_min, cfg.effective_f_max, cfg.n_mels,
         cfg.sample_rate)).to(dev)
@@ -4272,6 +4293,563 @@ def run_sad_1x(torch, dev, root, out_dir, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: first diarization (UIS-RNN, wav2vec, diar-features)
+# ---------------------------------------------------------------------------
+DIAR_FIXTURE = os.path.join("tests", "fixtures", "torch_diar_reference.json")
+DIAR_ARRAYS = os.path.join("tests", "fixtures", "torch_diar_reference_arrays.npz")
+DIAR_CKPT = os.path.join("tests", "fixtures", "torch_diar_reference_uisrnn.msgpack")
+DIAR_FEATURE_TOL = 1e-4               # logmel features against the JAX CLI's pickles
+DIAR_W2V_TOL = 1e-4                   # wav2vec features, of the largest, against JAX's
+DIAR_STEP_TOL = 1e-4                  # a fit step's loss, gradients, moments and leaves
+                                      # (cuDNN's GRU sums in its own order: the f64 witness)
+DIAR_STREAM_ITERS = 20                # --mode stream: fit iterations a batch of files
+DIAR_PROFILE_ITERS = 20               # the traced window: fit steps, then the first
+DIAR_PROFILE_OBS = 8                  # observations of one episode (the profiler's own
+                                      # processing grows with its events: ~70 s at 67k)
+DIAR_DEFAULT = dict(observation_dim=256, rnn_hidden_size=512)    # cli.uisrnn's defaults
+DIAR_DEFAULT_STEPS = 20
+
+
+def timed_calls(torch, owner, name, log):
+    """Patch owner.name with a wrapper that appends (seconds, result) of each
+    call, synchronised, to `log`; returns the original to restore."""
+    real = getattr(owner, name)
+
+    def wrapper(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = real(*a, **k)
+        torch.cuda.synchronize()
+        log.append((time.perf_counter() - t, res))
+        return res
+    setattr(owner, name, wrapper)
+    return real
+
+
+def run_diar_1x(torch, dev, root, out_dir, card):
+    """First diarization on the card (scripts/uisrnn_der.sh's chain). (a)
+    `cli.tools diar-features --features logmel` over the train split cut to
+    its first 10 episodes: K2 one launch an episode, the features against
+    the JAX CLI's pickles (DIAR_ARRAYS). (b) `--features wav2vec` at full
+    width from the seeded fairseq state dict converted by the port, against
+    JAX's pickle, and `extract_corpus_features` over the episode with no
+    error. (c) The fixture's fit steps one at a time from JAX's states
+    (loss, gradients, moments, leaves). (d) `predict_single` on JAX's
+    trained tree (DIAR_CKPT): the traces equal. (e) `cli.uisrnn --mode
+    kfold` at the script's flags on (a)'s pickles, from the port's own
+    initial draws: the DER within the band of JAX's two seeds; seconds, ms a
+    fit step, GRU steps a predicted observation. (f) A traced window (fit
+    steps, then part of one episode's prediction): the device's idle
+    share. (g)
+    `--mode stream`, stopped after its first batch and resumed. (h) fit and
+    predict at the CLI's default width (obs 256, hidden 512), timed."""
+    from tal_asrd_tpu_torch.cli import tools as cli_tools
+    from tal_asrd_tpu_torch.cli import uisrnn as cli_uisrnn
+    from tal_asrd_tpu_torch.core.checkpoint import save_pytree
+    from tal_asrd_tpu_torch.core.config import FrontendConfig
+    from tal_asrd_tpu_torch.data.audio_io import load_audio_segment
+    from tal_asrd_tpu_torch.data.synth import build_synth_corpus
+    from tal_asrd_tpu_torch.diarization import uisrnn, wav2vec
+    from tal_asrd_tpu_torch.ops.cuda_decode import fused_layer_step
+    from tal_asrd_tpu_torch.ops.cuda_decode_stacked import stacked_decoder_step
+    from tal_asrd_tpu_torch.ops.cuda_kernels import fused_logmel_project
+    from tal_asrd_tpu_torch.ops.specaug import spec_augment
+
+    ref = reference_script(root, "torch_diar_reference")
+    with open(os.path.join(root, DIAR_FIXTURE)) as f:
+        fx = json.load(f)
+    arrays = np.load(os.path.join(root, DIAR_ARRAYS))
+    base = os.path.join(out_dir, "diar")
+    out = {"phase": "diar_1x", "card": card, "split": ref.SPLIT_NOTE}
+    counters = {"fused_layer_step": fused_layer_step, "stacked_decoder_step": stacked_decoder_step,
+                "fused_logmel_project": fused_logmel_project, "spec_augment": spec_augment}
+    problems, stamps = [], {}
+
+    # ---- (a) diar-features --features logmel ---------------------------------------
+    stamps["features"] = time.perf_counter()
+    split = os.path.join(base, "split")
+    t0 = time.perf_counter()
+    build_synth_corpus(split, **ref.SPLIT)
+    synth_s = time.perf_counter() - t0
+    feat_dir = os.path.join(base, "diarfeat")
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cli_tools.main(["diar-features", "--data", split, "--out-dir", feat_dir, "--device", dev])
+    torch.cuda.synchronize()
+    feat_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    ids, errs, rows = fx["features"]["ids"], [], 0
+    for i in range(ref.SPLIT["n_episodes"]):
+        with open(os.path.join(feat_dir, f"ep{i}.pkl"), "rb") as f:
+            got, got_ids = pickle.load(f)
+        want = arrays[f"features/ep{i}"]
+        errs.append(float(np.abs(got - want).max()) if got.shape == want.shape
+                    and got_ids == ids[f"ep{i}"] else float("inf"))
+        rows += len(got_ids)
+    # K2 at the largest episode's rows, as diar-features stacks them
+    with open(os.path.join(split, "transcript.pkl"), "rb") as f:
+        transcripts = pickle.load(f)
+    sizes = {}
+    for stub, utts in transcripts.items():
+        audios = [load_audio_segment(os.path.join(split, stub + ".wav"), u["utterance_start"],
+                                     u["utterance_end"]) for u in utts]
+        sizes[stub] = [a for a in audios if len(a) >= 400]
+    biggest = max(sizes, key=lambda k: sum(len(a) for a in sizes[k]))
+    power = cli_tools.utterance_power(sizes[biggest], FrontendConfig(mean_subtract=False), dev)
+    k2 = check_logmel(torch, dev, 1, power=power)
+    out["features"] = {"synth_seconds": synth_s, "seconds": feat_s, "episodes": len(errs),
+                       "utterances": rows, "max_abs_err": max(errs), "by_episode": errs,
+                       "launches": launches, "k2_rows_timed": int(power.shape[0]),
+                       "k2_episode_timed": biggest}
+    if not max(errs) <= DIAR_FEATURE_TOL:
+        problems.append(f"logmel features {max(errs)} from JAX's (> {DIAR_FEATURE_TOL})")
+    if launches["fused_logmel_project"] != ref.SPLIT["n_episodes"]:
+        problems.append(f"diar-features launched K2 {launches['fused_logmel_project']} times "
+                        f"(one an episode: {ref.SPLIT['n_episodes']})")
+
+    # ---- (b) wav2vec ---------------------------------------------------------------------
+    stamps["wav2vec"] = time.perf_counter()
+    split1 = os.path.join(base, "split1")
+    build_synth_corpus(split1, **dict(ref.SPLIT, n_episodes=1))
+    _, variables = wav2vec.init_wav2vec(device="cpu")
+    tree = wav2vec.convert_fairseq_weights(ref.seeded_fairseq_state_dict(), variables)
+    ckpt = os.path.join(base, "w2v.msgpack")
+    save_pytree(ckpt, tree)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cli_tools.main(["diar-features", "--data", split1, "--out-dir", os.path.join(base, "w2v"),
+                    "--features", "wav2vec", "--wav2vec-ckpt", ckpt, "--device", dev])
+    torch.cuda.synchronize()
+    w2v_s = time.perf_counter() - t0
+    with open(os.path.join(base, "w2v", "ep0.pkl"), "rb") as f:
+        got, got_ids = pickle.load(f)
+    want = arrays["wav2vec/ep0"]
+    w2v_err = (float(np.abs(got - want).max() / np.abs(want).max())
+               if got.shape == want.shape and got_ids == fx["wav2vec"]["ids"] else float("inf"))
+    with open(os.path.join(split1, "transcript.pkl"), "rb") as f:
+        utts = pickle.load(f)["ep0"]
+    items = [load_audio_segment(os.path.join(split1, "ep0.wav"), u["utterance_start"],
+                                u["utterance_end"]) for u in utts]
+    model = wav2vec.load_wav2vec(tree, dev)
+    done, errors = wav2vec.extract_corpus_features(model, items, os.path.join(base, "w2v.pkl"))
+    # the same features under PyTorch's default (cuDNN convolutions in TF32),
+    # as diar-features runs outside this script: reported, not gated
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32 = np.stack([wav2vec.extract_utterance_features(model, a, window_s=None).mean(0)
+                         for a in items if len(a) >= 400])
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    out["wav2vec"] = {"seconds": w2v_s, "utterances": len(got_ids), "max_rel_err": w2v_err,
+                      "corpus_items": len(done), "corpus_errors": errors,
+                      "windows": sum(len(v) for v in done.values()),
+                      "tf32": "off (the script's setting)",
+                      "max_rel_err_cudnn_tf32_on": float(np.abs(tf32 - want).max()
+                                                         / np.abs(want).max())
+                      if tf32.shape == want.shape else None}
+    if not w2v_err <= DIAR_W2V_TOL:
+        problems.append(f"wav2vec features {w2v_err} from JAX's (> {DIAR_W2V_TOL})")
+    if errors or len(done) != len(items) or not all(np.isfinite(v).all() for v in done.values()):
+        problems.append(f"extract_corpus_features on the card: errors {errors}")
+    del model, variables, tree
+
+    # ---- (c) fit steps one at a time along JAX's trajectory --------------------------------
+    stamps["steps"] = time.perf_counter()
+    # beside each step's f32 gradients, the same step's in float64 on the card
+    # (nn.GRU's own kernels, not cuDNN's): how far each package's f32 sums lie
+    # from them
+    st = fx["steps"]
+    step_model = uisrnn.UISRNN(uisrnn.UISRNNConfig(**st["cfg"]), device=dev)
+    args = uisrnn.UISRNNTrainConfig(**st["train"])
+    fit = uisrnn.FitStep(step_model, args)
+    wide = uisrnn.UISRNN(uisrnn.UISRNNConfig(**st["cfg"]), device=dev)
+    wide.core.double()
+    wide.init_hidden, wide.sigma2 = wide.init_hidden.double(), wide.sigma2.double()
+    fit64 = uisrnn.FitStep(wide, args)
+    rel = lambda a, b: max(float(np.abs(w - b[p]).max() / np.abs(w).max())
+                           for p, w in ref.leaves_of(a))
+    gaps = []
+    for i in range(st["count"]):
+        state = {**{part: ref.unflat_tree(arrays, f"steps/state{i}/{part}")
+                    for part in ("trainable", "mu", "nu")}, "count": st["counts"][i]}
+        fit.set_state(state)
+        fit64.set_state(state)
+        x = torch.from_numpy(arrays[f"steps/{i}/x"]).to(dev)
+        truth = torch.from_numpy(arrays[f"steps/{i}/truth"]).to(dev)
+        loss, _, grads = fit.grads(x, truth)
+        want_g = ref.unflat_tree(arrays, f"steps/{i}/grads")
+        got_g = dict(ref.leaves_of(fit._tree(grads)))
+        f64_g = fit64._tree(fit64.grads(x.double(), truth.double())[2])
+        g_err = rel(want_g, got_g)
+        f64_err = {"card_f32": rel(f64_g, got_g), "jax_f32": rel(f64_g, dict(ref.leaves_of(want_g)))}
+        fit.update(grads)
+        want = {**{part: ref.unflat_tree(arrays, f"steps/state{i + 1}/{part}")
+                   for part in ("trainable", "mu", "nu")}, "count": st["counts"][i + 1]}
+        gap = ref.step_gaps(want, fit.state(), args.learning_rate)
+        gap.update(step=i, loss_rel_err=abs(float(loss) - st["losses"][i]) / st["losses"][i],
+                   grad_rel_err=g_err, grad_rel_err_of_f64=f64_err)
+        gaps.append(gap)
+    worst = max(max(g["trainable"], g["mu"], g["nu"], g["loss_rel_err"], g["grad_rel_err"])
+                for g in gaps)
+    out["steps"] = {"cfg": st["cfg"], "by_step": gaps, "worst_rel_err": worst}
+    if not worst <= DIAR_STEP_TOL or any(g["noise_abs"] > g["noise_bound"] for g in gaps):
+        problems.append(f"fit steps from JAX's states: {gaps}")
+    del fit, step_model, fit64, wide
+
+    # ---- (d) traces on JAX's trained tree ------------------------------------------------------
+    stamps["predict"] = time.perf_counter()
+    pr = fx["predict"]
+    pm = uisrnn.UISRNN(uisrnn.UISRNNConfig(**pr["cfg"]), device=dev)
+    pm.load(os.path.join(root, DIAR_CKPT))
+    traces, pred_s = {}, {}
+    for i in pr["test_episodes"]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        traces[f"ep{i}"] = pm.predict_single(arrays[f"features/ep{i}"],
+                                             uisrnn.UISRNNInferenceConfig(**pr["infer"]))
+        pred_s[f"ep{i}"] = time.perf_counter() - t0
+    equal = traces == pr["traces"]
+    out["predict"] = {"cfg": pr["cfg"], "traces_equal": equal, "seconds": pred_s,
+                      "jax_cpu_seconds": pr["predict_seconds"],
+                      **({} if equal else {"traces": traces, "jax_traces": pr["traces"]})}
+    if not equal:
+        problems.append("predict_single's traces on JAX's trained tree differ from JAX's")
+    del pm
+
+    # ---- (e) cli.uisrnn --mode kfold at the script's flags ------------------------------------
+    stamps["kfold"] = time.perf_counter()
+    kf = fx["kfold"]
+    fits, steps_n = [], []
+    real_fit = timed_calls(torch, uisrnn.UISRNN, "fit_concatenated", fits)
+    real_step = uisrnn.UISRNN._step
+
+    def counted_step(self, *a, **k):
+        steps_n.append(1)
+        return real_step(self, *a, **k)
+    uisrnn.UISRNN._step = counted_step
+    buf = io.StringIO()
+    try:
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli_uisrnn.main(["--features", os.path.join(feat_dir, "*.pkl"), "--mode",
+                                   "kfold", "--device", dev] + kf["flags"])
+        torch.cuda.synchronize()
+        kf_s = time.perf_counter() - t0
+        kf_launches = {k: fn.launches for k, fn in counters.items()}
+    finally:
+        uisrnn.UISRNN.fit_concatenated = real_fit
+        uisrnn.UISRNN._step = real_step
+    text = buf.getvalue()
+    line = [ln for ln in text.splitlines() if ln.startswith("mean accuracy:")][-1]
+    der = float(line.split("DER ")[1].rstrip(")"))
+    jax_ders = [r["der"] for r in kf["runs"].values()]
+    band = (min(jax_ders) - kf["der_spread"], max(jax_ders) + kf["der_spread"])
+    iters = int(kf["flags"][kf["flags"].index("--train-iteration") + 1])
+    fit_s = sum(t for t, _ in fits)
+    observations = 2 * rows                      # every episode predicted once, test-iteration 2
+    out["kfold"] = {"line": line, "der": der, "der_pct": 100 * der, "jax_ders": jax_ders,
+                    "band": band, "seconds": kf_s, "fit_seconds": fit_s,
+                    "ms_per_fit_step": 1e3 * fit_s / (len(fits) * iters),
+                    "predict_seconds": kf_s - fit_s, "gru_steps": len(steps_n),
+                    "gru_steps_per_observation": len(steps_n) / observations,
+                    "ms_per_gru_step": 1e3 * (kf_s - fit_s) / max(len(steps_n), 1),
+                    "jax_cpu_seconds": {s: r["seconds"] for s, r in kf["runs"].items()},
+                    "launches": kf_launches}
+    if not band[0] <= der <= band[1]:
+        problems.append(f"cli.uisrnn DER {der} outside JAX's band {band}")
+
+    # ---- (f) a traced window: fit steps, then part of one episode's prediction -------------
+    stamps["profile"] = time.perf_counter()
+    flags = dict(zip(kf["flags"][::2], kf["flags"][1::2]))
+    cfg = uisrnn.UISRNNConfig(observation_dim=int(flags["--observation-dim"]),
+                              rnn_hidden_size=int(flags["--rnn-hidden-size"]))
+    infer = uisrnn.UISRNNInferenceConfig(beam_size=int(flags["--beam-size"]),
+                                         look_ahead=int(flags["--look-ahead"]),
+                                         test_iteration=int(flags["--test-iteration"]))
+    eps = ref.load_episodes(arrays, ids)
+
+    def window():
+        m = uisrnn.UISRNN(cfg, seed=0, device=dev)
+        m.fit([f for f, _ in eps[1:]], [s for _, s in eps[1:]],
+              uisrnn.UISRNNTrainConfig(train_iteration=DIAR_PROFILE_ITERS,
+                                       log_iter=DIAR_PROFILE_ITERS))
+        m.predict_single(eps[0][0][:DIAR_PROFILE_OBS], infer)
+    with contextlib.redirect_stdout(io.StringIO()):
+        prof = profile_call(torch, "diar_1x: uisrnn fit + predict", window, ())
+    out["profile"] = {k: prof[k] for k in ("wall_seconds_traced", "device_busy_seconds",
+                                            "device_idle_share", "device_launches")}
+
+    # ---- (g) --mode stream, stopped after its first batch and resumed --------------------------
+    stamps["stream"] = time.perf_counter()
+    stream_ckpt = os.path.join(base, "stream", "uisrnn.msgpack")
+    shutil.rmtree(os.path.dirname(stream_ckpt), ignore_errors=True)
+    argv = ["--features", os.path.join(feat_dir, "*.pkl"), "--mode", "stream",
+            "--files-per-batch", "4", "--train-iteration", str(DIAR_STREAM_ITERS),
+            "--checkpoint", stream_ckpt, "--device", dev] + kf["flags"][:4]
+    real_fit, calls = uisrnn.UISRNN.fit, []
+
+    def stop_after_one(self, *a, **k):
+        if calls:
+            raise KeyboardInterrupt
+        calls.append(1)
+        return real_fit(self, *a, **k)
+    uisrnn.UISRNN.fit = stop_after_one
+    stopped = False
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli_uisrnn.main(argv)
+    except KeyboardInterrupt:
+        stopped = True
+    finally:
+        uisrnn.UISRNN.fit = real_fit
+    with open(stream_ckpt + ".progress") as f:
+        after_stop = f.read()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli_uisrnn.main(argv)
+    torch.cuda.synchronize()
+    with open(stream_ckpt + ".progress") as f:
+        after_resume = f.read()
+    reloaded = uisrnn.UISRNN(cfg, device=dev)
+    reloaded.load(stream_ckpt)
+    out["stream"] = {"stopped": stopped, "progress_after_stop": after_stop,
+                     "progress_after_resume": after_resume,
+                     "resumed": "resuming from batch 1" in buf.getvalue(),
+                     "resume_seconds": time.perf_counter() - t0,
+                     "transition_bias": reloaded.transition_bias}
+    if not (stopped and after_stop == "1" and after_resume == "3" and out["stream"]["resumed"]):
+        problems.append(f"--mode stream did not resume: {out['stream']}")
+
+    # ---- (h) the CLI's default width ------------------------------------------------------------
+    stamps["default_width"] = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    d = DIAR_DEFAULT["observation_dim"]
+    centres = rng.standard_normal((4, d)) * 3
+    seqs, labels = [], []
+    for _ in range(8):
+        lab = rng.integers(0, 4, 20)
+        seqs.append(centres[lab] + 0.3 * rng.standard_normal((20, d)))
+        labels.append([str(x) for x in lab])
+    big = uisrnn.UISRNN(uisrnn.UISRNNConfig(**DIAR_DEFAULT), device=dev)
+    big_fits, big_steps = [], []
+    real_fit = timed_calls(torch, uisrnn.UISRNN, "fit_concatenated", big_fits)
+    real_step = uisrnn.UISRNN._step
+
+    def counted_big(self, *a, **k):
+        big_steps.append(1)
+        return real_step(self, *a, **k)
+    uisrnn.UISRNN._step = counted_big
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            big.fit(seqs[1:], labels[1:], uisrnn.UISRNNTrainConfig(
+                train_iteration=DIAR_DEFAULT_STEPS, log_iter=DIAR_DEFAULT_STEPS))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        big.predict_single(seqs[0], uisrnn.UISRNNInferenceConfig())
+        big_pred_s = time.perf_counter() - t0
+    finally:
+        uisrnn.UISRNN.fit_concatenated = real_fit
+        uisrnn.UISRNN._step = real_step
+    out["default_width"] = {"cfg": DIAR_DEFAULT, "fit_steps": DIAR_DEFAULT_STEPS,
+                            "ms_per_fit_step": 1e3 * big_fits[0][0] / DIAR_DEFAULT_STEPS,
+                            "predict_seconds": big_pred_s, "observations": len(seqs[0]),
+                            "gru_steps": len(big_steps),
+                            "ms_per_gru_step": 1e3 * big_pred_s / len(big_steps),
+                            "beam": dataclasses.asdict(uisrnn.UISRNNInferenceConfig())}
+    names, t_end = list(stamps), time.perf_counter()
+    out["section_seconds"] = {n: (stamps[names[k + 1]] if k + 1 < len(names) else t_end)
+                              - stamps[n] for k, n in enumerate(names)}
+    emit(out)
+    if problems:
+        fail("diar_1x: " + "; ".join(problems))
+    return out, k2
+
+
+def diar_entries(dr, k2):
+    """The diarization phase's kernel: K2 in diar-features' run (one launch
+    an episode), held and timed at its largest episode's stacked rows."""
+    return [kernel_entry("diar_1x:diar_features", k2,
+                         dr["features"]["launches"]["fused_logmel_project"], k2["max_abs_err"])]
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: forced alignment
+# ---------------------------------------------------------------------------
+ALIGN_FIXTURE = os.path.join("tests", "fixtures", "torch_align_reference.json")
+ALIGN_ARRAYS = os.path.join("tests", "fixtures", "torch_align_reference_arrays.npz")
+ALIGN_ATTN_TOL = 1e-4                 # the f32 attention against the JAX CPU reference's
+ALIGN_D_TOL = 1e-6                    # D of JAX's own cost on the card, of the largest
+ALIGN_TIE_GAP = 1e-4                  # a backtrace parting at options closer than this: a tie
+MFCC_TOL = 1e-5                       # MFCCs on the card against the port's on the CPU, of
+                                      # the largest (f32 FFTs part in the bins of quiet frames)
+
+
+def parting_gap(d, path_a, path_b):
+    """Where two backtraces over D part (from the end), the gap between the
+    D values each chose, over their size; 0 if they never part."""
+    a, b = path_a[::-1], path_b[::-1]
+    for pa, pb in zip(a[1:], b[1:]):
+        if pa != pb:
+            return abs(float(d[pa]) - float(d[pb])) / max(abs(float(d[pa])), 1e-30)
+    return 0.0
+
+
+def run_align_1x(torch, dev, root, out_dir, card):
+    """Forced alignment on the card: `full_force_align` of the tracked
+    checkpoint in f32 over the test split's utterances of at most 30 s
+    (K2 in each utterance's encode, the teacher-forced decode, the DTW's
+    wavefront), with no utterance failed (the reference's `align_episode`
+    prints a failure and goes on: the phase records them), the fixture's
+    utterances against JAX's alignments (equal, or a witnessed DTW tie),
+    JAX's own cost through the card's DTW (D and path), a resumed run
+    (every episode skipped), and MFCCs of the split's episodes (one K2
+    launch) against the port's on the CPU. Times the DTW against the
+    attention matrix, utterance by utterance."""
+    from tal_asrd_tpu_torch.align import dtw, forced
+    from tal_asrd_tpu_torch.align.mfcc import mfcc
+    from tal_asrd_tpu_torch.data.audio_io import load_audio_segment
+    from tal_asrd_tpu_torch.data.transcript import load_transcripts
+    from tal_asrd_tpu_torch.ops.cuda_decode import fused_layer_step
+    from tal_asrd_tpu_torch.ops.cuda_decode_stacked import stacked_decoder_step
+    from tal_asrd_tpu_torch.ops.cuda_kernels import fused_logmel_project
+    from tal_asrd_tpu_torch.ops.specaug import spec_augment
+    from tal_asrd_tpu_torch.text.bpe import BpeTokenizer
+
+    with open(os.path.join(root, ALIGN_FIXTURE)) as f:
+        fx = json.load(f)
+    arrays = np.load(os.path.join(root, ALIGN_ARRAYS))
+    split = eval_split_of(out_dir)
+    tok = BpeTokenizer(model_path=os.path.join(root, fx["tokenizer"]))
+    model = tracked_1x(torch, dev, root, torch.float32)
+    out = {"phase": "align_1x", "card": card, "compute_dtype": "float32"}
+    counters = {"fused_layer_step": fused_layer_step, "stacked_decoder_step": stacked_decoder_step,
+                "fused_logmel_project": fused_logmel_project, "spec_augment": spec_augment}
+    problems = []
+
+    failures, attn_t, dtw_t = [], [], []
+    real_align = forced.align_utterance
+
+    def recording(*a, **k):
+        try:
+            return real_align(*a, **k)
+        except Exception as e:
+            failures.append(repr(e))
+            raise
+    forced.align_utterance = recording
+    real_attn = timed_calls(torch, forced, "attention_alignment_matrix", attn_t)
+    real_seg = timed_calls(torch, forced, "monotonic_segmentation", dtw_t)
+    aligned_path = os.path.join(out_dir, "align", "transcript-aligned.pkl")
+    os.makedirs(os.path.dirname(aligned_path), exist_ok=True)
+    try:
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = forced.full_force_align(model, tok, split, aligned_path)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        n_calls = len(attn_t)
+        t0 = time.perf_counter()
+        again = forced.full_force_align(model, tok, split, aligned_path)
+        resume_s = time.perf_counter() - t0
+        resumed_calls = len(attn_t) - n_calls
+    finally:
+        forced.align_utterance = real_align
+        forced.attention_alignment_matrix = real_attn
+        forced.monotonic_segmentation = real_seg
+    utts = [u for us in load_transcripts(split).values() for u in us]
+    in_range = [u for u in utts if 0 < u["utterance_end"] - u["utterance_start"] <= 30.0]
+    words = sum(len(u["alignments"]) for us in done.values() for u in us)
+    out["run"] = {"seconds": seconds, "episodes": len(done), "utterances": len(utts),
+                  "aligned_utterances": n_calls, "utterances_at_most_30s": len(in_range),
+                  "words": words, "failures": failures, "launches": launches,
+                  "attention_ms": 1e3 * sum(t for t, _ in attn_t[:n_calls]) / n_calls,
+                  "dtw_ms": 1e3 * sum(t for t, _ in dtw_t) / len(dtw_t),
+                  "resume_seconds": resume_s, "resume_aligned": resumed_calls,
+                  "resume_equal": again == done}
+    if failures:
+        problems.append(f"{len(failures)} utterances failed: {failures[:3]}")
+    if n_calls != len(in_range) or launches["fused_logmel_project"] != n_calls:
+        problems.append(f"aligned {n_calls} of {len(in_range)} utterances with "
+                        f"{launches['fused_logmel_project']} K2 launches (one an utterance)")
+    if resumed_calls or again != done:
+        problems.append("the resumed run aligned again or wrote another file")
+
+    # the fixture's utterances against JAX's
+    rows, checks = fx["utterances"], []
+    wav = os.path.join(split, "ep0.wav")
+    for i, (u, want) in enumerate(zip(done["ep0"], rows)):
+        audio = load_audio_segment(wav, u["utterance_start"], u["utterance_end"])
+        attn = forced.attention_alignment_matrix(model, audio, want["token_ids"])
+        got_al = [list(map(float, a[:2])) + [int(a[2])] for a in u["alignments"]]
+        cost = -np.log(attn + 1e-8)
+        d_port = dtw.dtw_cost_matrix(torch.from_numpy(cost).to(dev)).cpu().numpy()
+        jax_cost = -np.log(arrays[f"attn/{i}"] + 1e-8)
+        d_of_jax = dtw.dtw_cost_matrix(torch.from_numpy(jax_cost).to(dev)).cpu().numpy()
+        want_d = arrays[f"d/{i}"]
+        rec = {"utterance": i, "tokens": len(want["token_ids"]), "frames": int(attn.shape[1]),
+               "attn_max_abs_err": float(np.abs(attn - arrays[f"attn/{i}"]).max()),
+               "jax_cost_d_rel_err": float(np.abs(d_of_jax - want_d).max()
+                                           / np.abs(want_d).max()),
+               "jax_cost_path_equal": dtw.backtrace(d_of_jax) == dtw.backtrace(want_d),
+               "alignments_equal": got_al == want["alignments"]}
+        if not rec["alignments_equal"]:
+            rec["tie_gap"] = parting_gap(d_port, dtw.backtrace(d_port), dtw.backtrace(want_d))
+        checks.append(rec)
+    out["fixture"] = checks
+    for rec in checks:
+        if not (rec["attn_max_abs_err"] <= ALIGN_ATTN_TOL
+                and rec["jax_cost_d_rel_err"] <= ALIGN_D_TOL and rec["jax_cost_path_equal"]
+                and (rec["alignments_equal"] or rec["tie_gap"] <= ALIGN_TIE_GAP)):
+            problems.append(f"utterance {rec['utterance']} against JAX: {rec}")
+
+    # MFCCs of the split's episodes (one K2 launch)
+    waves = [load_audio_segment(os.path.join(split, f"ep{e}.wav"))
+             for e in range(EVAL_SPLIT["n_episodes"])]
+    audio = np.stack([w[:min(map(len, waves))] for w in waves]).astype(np.float32)
+    fused_logmel_project.launches = 0
+    x = torch.from_numpy(audio)
+    got = mfcc(x.to(dev)).cpu().numpy()
+    mfcc_launches = fused_logmel_project.launches
+    want = mfcc(x).numpy()
+    err = float(np.abs(got - want).max())
+    out["mfcc"] = {"shape": list(got.shape), "max_abs_err": err,
+                   "max_rel_err": err / float(np.abs(want).max()), "launches": mfcc_launches}
+    if not out["mfcc"]["max_rel_err"] <= MFCC_TOL:
+        problems.append(f"MFCCs {out['mfcc']['max_rel_err']} of the largest from the CPU's "
+                        f"(> {MFCC_TOL})")
+    emit(out)
+    if problems:
+        fail("align_1x: " + "; ".join(problems))
+    # K2 at the longest aligned utterance, and at the MFCC batch
+    longest = max(in_range, key=lambda u: u["utterance_end"] - u["utterance_start"])
+    ep = [s for s, us in load_transcripts(split).items() if longest in us][0]
+    one = load_audio_segment(os.path.join(split, f"{ep}.wav"), longest["utterance_start"],
+                             longest["utterance_end"])
+    k2_utt = check_logmel(torch, dev, 1, len(one), audio=torch.from_numpy(one[None]).to(dev))
+    k2_mfcc = check_logmel(torch, dev, audio.shape[0], audio.shape[1],
+                           audio=torch.from_numpy(audio).to(dev))
+    return out, k2_utt, k2_mfcc
+
+
+def align_entries(al, k2_utt, k2_mfcc):
+    """The alignment phase's kernels: K2 in full_force_align's run (one
+    launch an utterance; held and timed at the longest) and in the MFCCs of
+    the split's 4 episodes (one launch)."""
+    return [kernel_entry("align_1x:full_force_align", k2_utt,
+                         al["run"]["launches"]["fused_logmel_project"], k2_utt["max_abs_err"]),
+            kernel_entry("align_1x:mfcc", k2_mfcc, al["mfcc"]["launches"],
+                         k2_mfcc["max_abs_err"])]
+
+
 def cluster_entries(cl, k1_rec, k2_eval):
     """The clustering chain's kernels: K1 and K2 in its eval CLI run (the
     eval_aligned_1x shapes)."""
@@ -4418,7 +4996,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default="all",
                     choices=("all", "kernels", "train", "eval", "unaligned", "train_cli",
-                             "lm", "spk", "noncausal", "embed", "cluster", "sd", "sad"),
+                             "lm", "spk", "noncausal", "embed", "cluster", "sd", "sad",
+                             "diar", "align"),
                     help="'kernels' stops after the build and the kernel checks; "
                          "'train' skips the serving and eval phases; 'eval' runs "
                          "eval_aligned_1x after the kernel checks, nothing else; "
@@ -4427,7 +5006,8 @@ def main() -> None:
                          "lm_fusion_1x after them; 'spk' runs spk_head_1x after them; "
                          "'noncausal' runs noncausal_1x after them; 'embed' runs "
                          "embed_1x after them; 'cluster' runs cluster_1x after them; "
-                         "'sd' runs sd_baseline_1x after them; 'sad' runs sad_1x after them")
+                         "'sd' runs sd_baseline_1x after them; 'sad' runs sad_1x after them; "
+                         "'diar' runs diar_1x after them; 'align' runs align_1x after them")
     ap.add_argument("--profile", action="store_true",
                     help="also trace one fused greedy generate per model, each eval "
                          "CLI run, one 2x training step, the training CLI's second "
@@ -4655,7 +5235,13 @@ def main() -> None:
     # ---- 14. the neural SAD ------------------------------------------------------------
     if args.phases in ("all", "sad"):
         run_sad_1x(torch, dev, root, out_dir, card)
-    if args.phases in ("noncausal", "embed", "cluster", "sd", "sad"):
+    # ---- 15. first diarization: UIS-RNN, wav2vec, diar-features --------------------------
+    if args.phases in ("all", "diar"):
+        entries += diar_entries(*run_diar_1x(torch, dev, root, out_dir, card))
+    # ---- 16. forced alignment ----------------------------------------------------------------
+    if args.phases in ("all", "align"):
+        entries += align_entries(*run_align_1x(torch, dev, root, out_dir, card))
+    if args.phases in ("noncausal", "embed", "cluster", "sd", "sad", "diar", "align"):
         shutil.rmtree(out_dir, ignore_errors=True)
         finish(torch, entries, card, t_start)
         return

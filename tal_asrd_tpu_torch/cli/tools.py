@@ -11,6 +11,8 @@
     python -m tal_asrd_tpu_torch.cli.tools librispeech-format --src SPLIT --out-dir DIR
     python -m tal_asrd_tpu_torch.cli.tools wder-format --test-result PKL --out PKL \
         [--role-map JSON] [--sd-features NPY] [--chunk 357] [--device cuda]
+    python -m tal_asrd_tpu_torch.cli.tools diar-features --data DIR --out-dir DIR \
+        [--features logmel|wav2vec] [--wav2vec-ckpt MSGPACK] [--device cuda]
 
 Counterpart of tal_asrd_tpu/cli/tools.py, with the same arguments and
 output files: `average-ckpt` writes the leaf-wise mean of the last k
@@ -21,9 +23,15 @@ grows a checkpoint's embedding table for new speaker tokens,
 lays a LibriSpeech split out as a transcript.pkl corpus (one episode a
 chapter), `wder-format` turns a test_result.pkl into the wder-ready pickle
 (with --sd-features, attention-windowed embeddings on --device),
-`synth-sad-stress` writes the SAD stress corpus (data/synth.py). The
-reference's other subcommands are not ported yet: they exit non-zero
-naming the ROADMAP item that ports them (`UNPORTED`).
+`synth-sad-stress` writes the SAD stress corpus (data/synth.py),
+`diar-features` writes one (sequences, cluster_ids) pickle an episode for
+UIS-RNN (cli/uisrnn.py): per utterance of at least 400 samples either the
+mean and standard deviation (ddof 0) over frames of its log-mel (no mean
+subtracted: 160-d), on --device through the frontend's K2 kernel, one
+launch an episode with the utterances' frames stacked (each utterance
+framed alone: the reflect padding is its own), or the frame mean of the
+wav2vec-style features (diarization/wav2vec.py; --wav2vec-ckpt is a flax
+msgpack tree, else the port's own initial draw).
 """
 from __future__ import annotations
 
@@ -31,13 +39,8 @@ import argparse
 import json
 import os
 import pickle
-import sys
 from glob import glob
 from typing import List, Optional
-
-UNPORTED = {
-    "diar-features": "A17 (diarization features)",
-}
 
 
 def _files(src: str) -> List[str]:
@@ -103,6 +106,79 @@ def librispeech_format(src: str, out_dir: str) -> None:
     print(f"wrote {len(transcripts)} episodes to {out_dir}")
 
 
+def utterance_power(audios, cfg, device):
+    """The power spectra of each utterance (framed alone, reflect-padded),
+    stacked: [sum of frames, n_fft // 2 + 1] f32 on `device`."""
+    import torch
+
+    from tal_asrd_tpu_torch.ops.logmel import power_spectrogram
+
+    return torch.cat([power_spectrogram(torch.from_numpy(a).to(device)[None], cfg)[0]
+                      for a in audios]).contiguous()
+
+
+def logmel_stats(audios, cfg, device):
+    """[n, 2 * n_mels] float32: each utterance's log-mel (no mean subtracted)
+    mean and standard deviation (ddof 0) over its frames, the projection and
+    log of all the utterances' frames in one `fused_logmel_project` launch."""
+    import torch
+
+    from tal_asrd_tpu_torch.ops.cuda_kernels import fused_logmel_project
+    from tal_asrd_tpu_torch.ops.logmel import mel_filterbank
+
+    fb = torch.from_numpy(mel_filterbank(
+        cfg.n_fft // 2 + 1, cfg.f_min, cfg.effective_f_max, cfg.n_mels,
+        cfg.sample_rate)).to(device)
+    mel = fused_logmel_project(utterance_power(audios, cfg, device), fb, cfg.log_eps)
+    frames = [1 + len(a) // cfg.hop_length for a in audios]
+    rows = []
+    for part in mel.split(frames):
+        std, mean = torch.std_mean(part.double(), dim=0, correction=0)
+        rows.append(torch.cat([mean, std]))
+    return torch.stack(rows).to(torch.float32).cpu().numpy()
+
+
+def diar_features(data: str, out_dir: str, features: str = "logmel",
+                  wav2vec_ckpt: Optional[str] = None, device="cuda") -> None:
+    """The diar-features subcommand."""
+    import numpy as np
+
+    from tal_asrd_tpu_torch.core.config import FrontendConfig
+    from tal_asrd_tpu_torch.data.audio_io import load_audio_segment
+
+    with open(os.path.join(data, "transcript.pkl"), "rb") as f:
+        transcripts = pickle.load(f)
+    os.makedirs(out_dir, exist_ok=True)
+    if features == "wav2vec":
+        from tal_asrd_tpu_torch.core.checkpoint import load_pytree
+        from tal_asrd_tpu_torch.diarization.wav2vec import (
+            extract_utterance_features, init_wav2vec, load_wav2vec)
+
+        model = (load_wav2vec(load_pytree(wav2vec_ckpt), device) if wav2vec_ckpt
+                 else init_wav2vec(device=device)[0])
+    fe_cfg = FrontendConfig(mean_subtract=False)
+    for stub, utts in transcripts.items():
+        wav = os.path.join(data, stub + ".wav")
+        audios, ids = [], []
+        for u in utts:
+            audio = load_audio_segment(wav, u["utterance_start"], u["utterance_end"])
+            if len(audio) < 400:
+                continue
+            audios.append(audio)
+            ids.append(u["speaker"])
+        if not audios:
+            continue
+        if features == "logmel":
+            feats = logmel_stats(audios, fe_cfg, device)
+        else:
+            feats = np.stack([extract_utterance_features(model, a, window_s=None)
+                              .mean(axis=0).astype(np.float32) for a in audios])
+        with open(os.path.join(out_dir, stub + ".pkl"), "wb") as f:
+            pickle.dump((feats, ids), f)
+        print(f"{stub}: {len(feats)} utterances x {feats.shape[1]}-d")
+    print(f"wrote {len(transcripts)} episode feature files to {out_dir}")
+
+
 def main(argv: Optional[List[str]] = None) -> None:
     p = argparse.ArgumentParser("tal_asrd_tpu_torch tools")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -154,6 +230,19 @@ def main(argv: Optional[List[str]] = None) -> None:
     wf.add_argument("--device", default="cuda",
                     help="where the attention-weighted embeddings are computed")
 
+    df = sub.add_parser("diar-features",
+                        help="per-utterance diarization features over a corpus -> "
+                             "per-episode (sequences, cluster_ids) pickles for UIS-RNN")
+    df.add_argument("--data", required=True, help="corpus dir (transcript.pkl)")
+    df.add_argument("--out-dir", required=True)
+    df.add_argument("--features", choices=["logmel", "wav2vec"], default="logmel",
+                    help="logmel: mean+std pooled log-mel (160-d); wav2vec: "
+                         "mean-pooled aggregator features")
+    df.add_argument("--wav2vec-ckpt", default=None,
+                    help="optional wav2vec parameters (a flax msgpack tree)")
+    df.add_argument("--device", default="cuda",
+                    help="where the features are computed")
+
     sy = sub.add_parser("synth-corpus",
                         help="synthetic-speech corpus in the reference's layout "
                              "(the audio encodes the text)")
@@ -175,13 +264,6 @@ def main(argv: Optional[List[str]] = None) -> None:
     ss.add_argument("--snr-high", type=float, default=20.0)
     ss.add_argument("--noise-rms", type=float, default=0.02)
 
-    for name, item in UNPORTED.items():
-        sub.add_parser(name, help=f"not ported yet: ROADMAP {item}")
-
-    argv = sys.argv[1:] if argv is None else list(argv)
-    if argv and argv[0] in UNPORTED:
-        sys.exit(f"tal_asrd_tpu_torch.cli.tools {argv[0]}: not ported yet, "
-                 f"ROADMAP {UNPORTED[argv[0]]}")
     args = p.parse_args(argv)
 
     if args.cmd == "train-tokenizer":
@@ -261,6 +343,14 @@ def main(argv: Optional[List[str]] = None) -> None:
         with open(args.out, "wb") as f:
             pickle.dump(out, f)
         print(f"wrote {len(out)} wder-ready pairs to {args.out}")
+
+    elif args.cmd == "diar-features":
+        from tal_asrd_tpu_torch.ops.cuda_kernels import fused_logmel_project
+
+        before = fused_logmel_project.launches
+        diar_features(args.data, args.out_dir, args.features, args.wav2vec_ckpt,
+                      args.device)
+        print(f"fused_logmel_project launches: {fused_logmel_project.launches - before}")
 
     elif args.cmd == "synth-corpus":
         from tal_asrd_tpu_torch.data.synth import build_synth_corpus

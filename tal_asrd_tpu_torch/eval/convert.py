@@ -28,6 +28,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from tal_asrd_tpu_torch.align.forced import token_word_groups
 from tal_asrd_tpu_torch.eval.wder import corpus_wder
 
 
@@ -52,21 +53,6 @@ def _window_embed(attention: np.ndarray, chunk_starts: np.ndarray,
         return out.cpu().numpy()
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
-
-
-def token_word_groups(tokenizer, token_ids: Sequence[int]) -> List[Tuple[int, int]]:
-    """Token index spans of words: token i opens a new word when appending
-    it to the running slice introduces a space (tal_asrd_tpu/align/forced.py)."""
-    groups: List[Tuple[int, int]] = []
-    last = 0
-    ids = list(token_ids)
-    for i in range(1, len(ids)):
-        if " " in tokenizer.decode(ids[last:i + 1]):
-            groups.append((last, i))
-            last = i
-    if last < len(ids):
-        groups.append((last, len(ids)))
-    return groups
 
 
 def hyp_utterance_entry(hyp: dict, role_map: Optional[dict],

@@ -479,13 +479,10 @@ def test_tools_write_the_reference_tools_leaves(tmp_path, cmd):
     ("convert-audio", "A16"), ("merge-outputs", "A16"), ("librispeech-format", "A16"),
     ("wder-format", "A16"), ("diar-features", "A17"), ("synth-sad-stress", "A18")])
 def test_unported_tools_exit_naming_their_item(cmd, item):
-    """diar-features exits naming its ROADMAP item; the A16 subcommands and
-    A18's synth-sad-stress are ported and parse their own arguments
-    (argparse exits 2 on the ones left out and on an unknown one)."""
+    """Every subcommand is ported (A16's, A17's diar-features, A18's
+    synth-sad-stress) and parses its own arguments: argparse exits 2 on
+    the ones left out and on an unknown one."""
     from tal_asrd_tpu_torch.cli.tools import main as tools
     with pytest.raises(SystemExit) as e:
         tools([cmd, "--out-dir", "x", "--no-such-flag"])
-    if item in ("A16", "A18"):
-        assert e.value.code == 2
-    else:
-        assert item in str(e.value) and "not ported" in str(e.value)
+    assert e.value.code == 2

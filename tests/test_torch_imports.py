@@ -117,7 +117,33 @@ def test_the_speaker_baseline_and_sad_modules_are_among_the_checked_ones():
                        (vad, ("PyanNet", "SincConv", "score_episode", "frame_labels",
                               "n_frames", "binarize", "export_corpus", "to_rttm", "to_uem"))):
         assert set(names) <= set(pkg.__all__) and all(hasattr(pkg, n) for n in pkg.__all__)
-    assert "synth-sad-stress" not in tools.UNPORTED
+    assert not hasattr(tools, "UNPORTED")      # every subcommand is ported
+
+
+def test_the_diarization_and_alignment_modules_are_among_the_checked_ones():
+    """First diarization (A17) and alignment (A19) are ported, with the JAX
+    package's __all__."""
+    mods = set(_port_modules())
+    assert {"tal_asrd_tpu_torch.diarization.gru", "tal_asrd_tpu_torch.diarization.uisrnn",
+            "tal_asrd_tpu_torch.diarization.wav2vec", "tal_asrd_tpu_torch.diarization.evals",
+            "tal_asrd_tpu_torch.diarization.experiment", "tal_asrd_tpu_torch.diarization.dvec",
+            "tal_asrd_tpu_torch.cli.uisrnn", "tal_asrd_tpu_torch.align.dtw",
+            "tal_asrd_tpu_torch.align.mfcc", "tal_asrd_tpu_torch.align.forced"} <= mods
+    import tal_asrd_tpu_torch.align as align
+    import tal_asrd_tpu_torch.diarization as diarization
+    from tal_asrd_tpu_torch.diarization.dvec import DVEC_SOURCES
+    want = {
+        diarization: ["UISRNN", "UISRNNConfig", "UISRNNInferenceConfig", "UISRNNTrainConfig",
+                      "estimate_transition_bias", "resize_sequence", "diarization_error_rate",
+                      "evaluate_result", "GRU", "GRUCell", "ConvAggregator",
+                      "ConvFeatureExtractor", "Wav2VecFeatures", "extract_corpus_features",
+                      "extract_utterance_features", "init_wav2vec", "kfold_experiment",
+                      "streaming_fit"],
+        align: ["dtw_cost_matrix", "dtw_path", "monotonic_segmentation", "mfcc", "dct_matrix",
+                "align_episode", "align_utterance", "full_force_align", "token_word_groups"]}
+    for pkg, names in want.items():
+        assert pkg.__all__ == names and all(hasattr(pkg, n) for n in names)
+    assert all(s.startswith("tal_asrd_tpu_torch.") and s in mods for s in DVEC_SOURCES)
 
 
 @pytest.mark.parametrize("script,call", [
@@ -129,11 +155,17 @@ def test_the_speaker_baseline_and_sad_modules_are_among_the_checked_ones():
     ("torch_sad_reference.py",
      "t = mod.seeded_pyannet_tree(0)\n"
      "assert t['OptimizedLSTMCell_3']['ii']['kernel'].shape == (256, 128)\n"
-     "assert t['Conv_0']['kernel'].shape == (5, 80, 60)\n")])
+     "assert t['Conv_0']['kernel'].shape == (5, 80, 60)\n"),
+    ("torch_diar_reference.py",
+     "sd = mod.seeded_fairseq_state_dict(0)\n"
+     "assert sd['feature_aggregator.conv_layers.8.1.weight'].shape == (512, 512, 3)\n"
+     "t = mod.unflat_tree(mod.flat_tree({'a': {'b': np.ones(2)}}, 'x'), 'x')\n"
+     "assert t['a']['b'].tolist() == [1, 1]\n")])
 def test_the_baseline_reference_scripts_build_their_trees_with_numpy_alone(script, call):
-    """scripts/torch_sd_reference.py's `seeded_sd_tree` and
-    scripts/torch_sad_reference.py's `seeded_pyannet_tree` (chip_smoke.py
-    rebuilds both on the card) import numpy only."""
+    """scripts/torch_sd_reference.py's `seeded_sd_tree`,
+    scripts/torch_sad_reference.py's `seeded_pyannet_tree` and
+    scripts/torch_diar_reference.py's `seeded_fairseq_state_dict` (chip_smoke.py
+    rebuilds them on the card) import numpy only."""
     code = (
         "import importlib.util, sys\n"
         "import numpy as np\n"
