@@ -16,6 +16,7 @@
     python3 chip_smoke.py --phases sad       # ... + the neural SAD only
     python3 chip_smoke.py --phases diar      # ... + first diarization (UIS-RNN) only
     python3 chip_smoke.py --phases align     # ... + forced alignment only
+    python3 chip_smoke.py --phases optim     # ... + RAdam, Adafactor, Lookahead only
 
 Builds the port's CUDA kernels from tal_asrd_tpu_torch/csrc/ with nvcc, holds
 each against its plain PyTorch version on the card at the shapes its paths
@@ -154,11 +155,24 @@ SpecAugment (K4), `cli.tools average-ckpt --last-k 3`, and the eval CLI on
 the average over the test split; K2 at every audio shape the phase saw and
 K4 at [16, 3001, 80], both on int16 audio.
 
+Then the optimizers (`optim_1x`, `--phases optim`, also in `train` and
+`all`): RAdam, Adafactor and Lookahead replayed on the tracked checkpoint's
+leaves against the JAX CPU trajectories of
+tests/fixtures/torch_optim_reference.* (scripts/torch_optim_reference.py);
+then the tracked checkpoint trained through `ASRSystem._make_optimizer`
+for 8 steps of 16 x 30 s windows of the synthetic train split (K2, K4)
+with each of RAdam, Adafactor (defaults), Adafactor (beta1 0.9, wd 0.01,
+the system's schedule), Lookahead(LAMB), Lookahead(RAdam) and LAMB, each
+step's update held against the same optimizer on the CPU, each `step()`
+timed (`utils.profiling`), one step traced; and one fused greedy 1x
+generate (K1, K2) beside `utils.flops`' roofline at the H100's peaks.
+
 Prints one JSON object per line: `device`, one `kernel` line per check,
 `k3_vs_k1_chain`, `k1_determinism`, `k3_determinism`, `kernel_timing`, one `serve_*` line per configuration,
 `eval_aligned_1x`, `prefill_handoff`, `eval_unaligned_1x`, `lm_fusion_1x`, `spk_head_1x`,
 `noncausal_1x`, `embed_1x`, `cluster_1x`, `sd_baseline_1x`, `sad_1x`, `diar_1x`,
-`align_1x`, `train_2x`, `train_1x_checkpoint`, `train_cli_1x`, `kernels` (every kernel of each path with
+`align_1x`, `train_2x`, `train_1x_checkpoint`, `train_cli_1x`, `optim_fixture_replay`, `optim_1x`,
+`kernels` (every kernel of each path with
 its launch count in that path's one timed run, its error against the plain
 version, its time, the plain version's, a library call's where one exists,
 and the least time the card could take), and last
@@ -184,11 +198,6 @@ import sys
 import time
 
 import numpy as np
-
-# Published peaks of one H100 SXM (dense): device memory rate, f32 rate
-# outside the tensor cores, bf16 and TF32 tensor-core rates.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32": 494.7e12}
 
 WINDOW_SAMPLES = 456_960          # 28.56 s at 16 kHz -> 2857 frames -> 340 enc frames
 SEED = 0
@@ -238,6 +247,10 @@ def time_graph_ms(fn, reps: int) -> float:
 
 
 def bound(bytes_moved: float, flops: float, dtype_name: str):
+    """The least time in ms the card could take: the larger of the bytes
+    over its memory rate and the operations over its peak for the type
+    (an H100 SXM's published dense peaks, `utils/flops.py`)."""
+    from tal_asrd_tpu_torch.utils.flops import PEAK_BYTES_PER_S, PEAK_FLOPS
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -4840,6 +4853,360 @@ def run_align_1x(torch, dev, root, out_dir, card):
     return out, k2_utt, k2_mfcc
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: RAdam, Adafactor and Lookahead on the tracked checkpoint (optim_1x)
+# ---------------------------------------------------------------------------
+OPTIM_FIXTURE = os.path.join("tests", "fixtures", "torch_optim_reference")
+OPTIM_TOL = 1e-5
+# the first 11 episodes of scripts/ensure_corpus.sh's train split (100 x 120 s,
+# seed 0): 132 windows of 10-30 s, padded to the 30 s bucket, 8 batches of 16
+OPTIM_SPLIT = dict(n_episodes=11, episode_seconds=120.0, n_speakers=8, seed=0)
+OPTIM_STEPS, OPTIM_BATCH = 8, 16
+# the card's configurations: the fixture's five, and LAMB for scale
+OPTIM_CONFIGS = {"lamb": ["lamb", {"learning_rate": "schedule"}]}
+# TrainConfig.lr of each training run (scaled by sqrt(16)): RAdam's first
+# five steps are the reference's unrectified branch, plain SGD with momentum
+# at lr, and at LAMB's 1e-4 the tracked checkpoint diverges within four
+# steps (its ReZero scalars' gradients reach 425); at 1e-6 it does not
+OPTIM_TRAIN_LR = {"radam": 1e-6, "lookahead_radam": 1e-6}
+ROOFLINE_NEW = 64
+
+
+def port_optimizer(name, kwargs, named, schedule):
+    """The port's counterpart of a scripts/torch_optim_reference.py
+    configuration (optax's keyword names; "schedule" for the system's)."""
+    from tal_asrd_tpu_torch.train.optimizers import LAMB, Adafactor, Lookahead, RAdam
+    kw = dict(kwargs)
+    lr = schedule if kw.pop("learning_rate", None) == "schedule" else None
+    if name == "lookahead":
+        return Lookahead(port_optimizer(*kw.pop("inner"), named, schedule), **kw)
+    if name == "adafactor":
+        return Adafactor(named, lr, **kw)
+    return {"radam": RAdam, "lamb": LAMB}[name](named, lr, **kw)
+
+
+def replay_optim_fixture(torch, dev, root):
+    """The JAX CPU trajectories of tests/fixtures/torch_optim_reference.*
+    replayed with the port's optimizers on `dev`: the tracked checkpoint's
+    six leaves, the same regenerated gradients, 8 steps of each
+    configuration. Returns {configuration: (the largest error, its key)}
+    over two kinds of error: a final leaf's or state leaf's over that
+    leaf's largest magnitude in JAX's run (a sampled leaf: over its
+    sample, and its sum of squares relative); and each step's update, the
+    change the step made to a leaf against JAX's update at that step (on
+    its sample), over JAX's largest update of the leaf at that step, less
+    the float32 ulps of the parameter where the final add's rounding parts
+    once the updates differ in their last bits (one; two for Lookahead,
+    whose slow interpolation rounds too). The eight steps move a leaf by
+    about 1e-4 of its largest value: the final values alone cannot show
+    the update rule above float32's rounding, its updates do."""
+    from tal_asrd_tpu_torch.core.checkpoint import load_pytree, to_tensor, tree_from_leaves
+    from tal_asrd_tpu_torch.core.convert import params_to_state_dict, unconvert_entry
+    from tal_asrd_tpu_torch.train.schedules import linear_decay_schedule
+
+    mod = reference_script(root, "torch_optim_reference")
+    with open(os.path.join(root, OPTIM_FIXTURE + ".json")) as f:
+        ref = json.load(f)
+    arrays = np.load(os.path.join(root, OPTIM_FIXTURE + ".npz"))
+    tree = load_pytree(os.path.join(root, ref["checkpoint"]))
+    leaves = []
+    for path in ref["leaves"]:
+        node = tree
+        for part in path.split("/"):
+            node = node[part]
+        leaves.append(to_tensor(node).float().numpy())
+
+    def port_layout(path, x):
+        ((name, t),) = params_to_state_dict(
+            tree_from_leaves([(tuple(path.split("/")), x)])).items()
+        return name, t.contiguous()
+
+    grads = [[port_layout(p, g)[1].to(dev) for p, g in zip(ref["leaves"], mod.leaf_gradients(
+        leaves, s))] for s in range(ref["steps"])]
+    schedule = linear_decay_schedule(ref["schedule"]["scaled_lr"], ref["schedule"]["max_steps"])
+    worst = {}
+    for config, (name, kwargs) in ref["configs"].items():
+        named = [(n, torch.nn.Parameter(t.to(dev))) for n, t in
+                 (port_layout(p, x) for p, x in zip(ref["leaves"], leaves))]
+        opt = port_optimizer(name, kwargs, named, schedule)
+        n_ulps = 2.0 if name == "lookahead" else 1.0
+        errs = []
+        for s in range(ref["steps"]):
+            for (_, prm), g in zip(named, grads[s]):
+                prm.grad = g.clone()
+            before = [prm.detach().clone() for _, prm in named]
+            opt.step()
+            for (n, prm), p0, path in zip(named, before, ref["leaves"]):
+                key = f"{config}/updates/{path}"
+                entry = ref["updates"][key]
+                p0, p1 = (unconvert_entry(n, t)[1].cpu().numpy().reshape(-1)[::entry["stride"]]
+                          for t in (p0, prm.detach()))
+                diff = np.abs(p1.astype(np.float64) - p0 - arrays[key][s])
+                excess = diff - n_ulps * np.spacing(np.maximum(np.abs(p0), np.abs(p1)))
+                errs.append((float(np.max(excess.clip(min=0.0), initial=0.0))
+                             / max(entry["max_abs"][s], 1e-30), f"{key}@{s + 1}"))
+        got = {f"params/{'/'.join(unconvert_entry(n, prm)[0])}":
+               unconvert_entry(n, prm.detach())[1].cpu().numpy() for n, prm in named}
+        got.update({f"state/{k}": v for k, v in
+                    mod.flat_state(opt.reference_state()).items()})
+        for key, entry in ref["entries"].items():
+            if not key.startswith(config + "/"):
+                continue
+            x = np.asarray(got[key[len(config) + 1:]])
+            if "value" in entry:                  # counts
+                errs.append((0.0 if int(x) == entry["value"] else float("inf"), key))
+                continue
+            want = arrays[key]
+            if "stride" in entry:
+                errs.append((abs(float(np.sum(np.square(x, dtype=np.float64)))
+                                 - entry["sumsq"]) / max(entry["sumsq"], 1e-30), key + ":sumsq"))
+                x = x.reshape(-1)[::entry["stride"]]
+            errs.append((float(np.max(np.abs(x.astype(np.float64) - want), initial=0.0))
+                         / max(entry["max_abs"], 1e-30), key))
+        worst[config] = max(errs)
+    return worst
+
+
+def optim_train_batches(torch, dev, root, out_dir):
+    """OPTIM_STEPS batches of OPTIM_BATCH windows of OPTIM_SPLIT (fixed
+    windows, det_seed 1234, through the training CLI's collater at its 30 s
+    bucket), on the card."""
+    from tal_asrd_tpu_torch.data.collate import BucketedCollater
+    from tal_asrd_tpu_torch.data.loader import DataLoader, ShardedSampler
+    from tal_asrd_tpu_torch.data.segment import SegmentDataset
+    from tal_asrd_tpu_torch.data.synth import build_synth_corpus
+    from tal_asrd_tpu_torch.text.bpe import BpeTokenizer
+
+    split = os.path.join(out_dir, "optim_train")
+    build_synth_corpus(split, **OPTIM_SPLIT)
+    tokenizer = BpeTokenizer(model_path=os.path.join(root, "accuracy_release", "bpe.model"))
+    ds = SegmentDataset(split, tokenizer, segment_size=30.0, tokenizer_speakers=True,
+                        speaker_map_loc=os.path.join(split, "speaker_map.json"),
+                        return_spk_ids=True, det_seed=1234)
+    loader = DataLoader(ds, OPTIM_BATCH, BucketedCollater(tokenizer.pad_token_id),
+                        ShardedSampler(len(ds), shuffle=False), 0)
+    batches = []
+    for batch in loader:
+        batches.append({k: torch.as_tensor(v).to(dev) for k, v in batch.items()
+                        if k in ("audio", "audio_lens", "text", "text_mask", "spk_ids")})
+        if len(batches) == OPTIM_STEPS:
+            break
+    return batches, len(tokenizer)
+
+
+def run_optim_1x(torch, dev, root, out_dir, card, k1_rec):
+    """RAdam, Adafactor and Lookahead (A12.3) on the card. The fixture replay
+    (`replay_optim_fixture`: final leaves and states within OPTIM_TOL of
+    each leaf's largest magnitude in JAX's run, each step's update within
+    OPTIM_TOL of JAX's largest update beside the parameter's ulps); then the tracked checkpoint in f32 parameters,
+    bf16 compute, SpecAugment on, trained through `ASRSystem._make_optimizer`
+    for OPTIM_STEPS steps with each configuration of the fixture and with
+    LAMB, at `TrainConfig(batch_size=16, max_steps=8)`'s schedule (lr
+    OPTIM_TRAIN_LR for RAdam's): each
+    step's update held against the same optimizer stepped on the CPU from
+    the card's parameters, gradients and state (gate: OPTIM_TOL of the
+    leaf's largest update, beside one float32 ulp of the parameter, where
+    the final add's rounding parts once the updates differ in their last
+    bits; two for Lookahead, whose slow interpolation rounds too), every
+    loss finite, every parameter given a gradient, each
+    `step()` timed with `utils.profiling.StepTimer` and `sync`; one traced
+    step through `utils.profiling.trace`; then the roofline leg: one fused
+    greedy generate of the tracked checkpoint (bf16) at B = 8 windows of the
+    test split, ROOFLINE_NEW tokens (K1, K2), beside `utils.flops`'
+    `greedy_decode_flops` and `greedy_decode_roofline` at the H100's peaks
+    (printed, not gated). Returns the record and the K2 / K4 checks at the
+    training batches' shape."""
+    from tal_asrd_tpu_torch.core.checkpoint import load_pytree
+    from tal_asrd_tpu_torch.core.config import ModelConfig, TrainConfig
+    from tal_asrd_tpu_torch.core.convert import params_to_state_dict
+    from tal_asrd_tpu_torch.data.audio_io import load_audio_segment
+    from tal_asrd_tpu_torch.decode.beam import BeamSearchSpec, make_generate_fn
+    from tal_asrd_tpu_torch.decode.fused_step import FusedASRDecoder
+    from tal_asrd_tpu_torch.ops.cuda_decode import fused_layer_step
+    from tal_asrd_tpu_torch.ops.cuda_kernels import fused_logmel_project
+    from tal_asrd_tpu_torch.ops.specaug import spec_augment
+    from tal_asrd_tpu_torch.train.system import ASRSystem
+    from tal_asrd_tpu_torch.utils import flops as fl
+    from tal_asrd_tpu_torch.utils.profiling import StepTimer, sync, trace
+
+    t_phase = time.perf_counter()
+    # ---- the fixture replay ------------------------------------------------------
+    replay = replay_optim_fixture(torch, dev, root)
+    emit({"phase": "optim_fixture_replay", "worst_rel_err": replay, "tolerance": OPTIM_TOL})
+    if not max(err for err, _ in replay.values()) <= OPTIM_TOL:
+        fail(f"optim_1x: the fixture replay parts from JAX's by {replay} (> {OPTIM_TOL})")
+    with open(os.path.join(root, OPTIM_FIXTURE + ".json")) as f:
+        configs = dict(OPTIM_CONFIGS, **json.load(f)["configs"])
+
+    # ---- training ----------------------------------------------------------------
+    batches, n_text = optim_train_batches(torch, dev, root, out_dir)
+    cfg = ModelConfig(model_type="1x", num_speakers=8, vocab_size=n_text)
+    tracked = params_to_state_dict(load_pytree(
+        os.path.join(root, "accuracy_release", "avg_last_3.bf16.msgpack")))
+    counters = {"fused_logmel_project": fused_logmel_project, "spec_augment": spec_augment}
+    runs = {}
+    for fn in counters.values():
+        fn.launches = 0
+    for config, (name, kwargs) in configs.items():
+        class System(ASRSystem):
+            def _make_optimizer(self):
+                return port_optimizer(name, kwargs, self.model.named_parameters(),
+                                      self._schedule())
+
+        tc = TrainConfig(batch_size=OPTIM_BATCH, max_steps=OPTIM_STEPS,
+                         lr=OPTIM_TRAIN_LR.get(config, 1e-4))
+        system = System(cfg, tc, device=dev)
+        system.model.load_state_dict(tracked)
+        named = list(system.model.named_parameters())
+        params = [p for _, p in named]
+        timer = StepTimer(window=OPTIM_STEPS)
+        losses, gaps, gaps_raw, no_grad, differing = [], [], [], set(), 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for batch in batches:
+            metrics = system.compute_grads(batch)
+            no_grad |= {n for n, p in named if p.grad is None}
+            cpu_named = [(n, torch.nn.Parameter(p.detach().cpu())) for n, p in named]
+            for (_, c), p in zip(cpu_named, params):
+                c.grad = None if p.grad is None else p.grad.detach().cpu()
+            twin = port_optimizer(name, kwargs, cpu_named, system._schedule())
+            twin.copy_state_from(system.optimizer)
+            before = [p.detach().clone() for p in params]
+            sync(params)
+            with timer:
+                system.optimizer.step()
+                sync(params)
+            system.step += 1
+            twin.step()
+            gap = gap_raw = 0.0
+            # roundings after the update that can part: the final add, and
+            # for Lookahead also the slow interpolation (two ulps)
+            n_ulps = 2.0 if name == "lookahead" else 1.0
+            for p, p0, (_, c) in zip(params, before, cpu_named):
+                c = c.detach()
+                u_cpu = c - p0.cpu()
+                diff = ((p.detach() - p0).cpu() - u_cpu).abs()
+                ulp = n_ulps * (torch.nextafter(c.abs(), torch.tensor(float("inf"))) - c.abs())
+                scale = max(float(u_cpu.abs().max()), 1e-30)
+                gap = max(gap, float((diff - ulp).clamp_min(0.0).max()) / scale)
+                gap_raw = max(gap_raw, float(diff.max()) / scale)
+                differing += int((diff > 0).sum())
+            gaps.append(gap)
+            gaps_raw.append(gap_raw)
+            losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        runs[config] = {
+            "lr": tc.scaled_lr, "optimizer": type(system.optimizer).__name__ + (
+                f"({type(system.optimizer.inner).__name__})"
+                if hasattr(system.optimizer, "inner") else ""),
+            "losses": losses, "update_count": system.update_count(),
+            "step_ms": [1e3 * t for t in timer.times],
+            "step_ms_mean_after_first": 1e3 * float(np.mean(list(timer.times)[1:])),
+            "card_vs_cpu_update_gap": gaps, "card_vs_cpu_update_gap_raw": gaps_raw,
+            "elements_differing": differing, "params_without_grad": sorted(no_grad),
+            "seconds_with_checks": time.perf_counter() - t0}
+        if name == "lamb":
+            last_system = system
+        else:
+            del system
+        torch.cuda.empty_cache()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    # one traced step (LAMB's system, a ninth step), its top device operations
+    trace_dir = os.path.join(out_dir, "optim_trace")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with trace(trace_dir) as prof:
+        last_system.train_step(batches[0])
+        torch.cuda.synchronize()
+    traced_s = time.perf_counter() - t0
+    events = prof.key_averages()
+    on_device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                 and not getattr(e, "is_user_annotation", False)]
+    busy = sum(e.self_device_time_total for e in on_device) / 1e6
+    top = sorted(on_device, key=lambda e: e.self_device_time_total, reverse=True)[:8]
+    traced = {"wall_seconds": traced_s, "device_busy_seconds": busy,
+              "trace_bytes": os.path.getsize(os.path.join(trace_dir, "trace.json")),
+              "top_device": [{"name": e.key[:60], "calls": e.count,
+                              "ms": e.self_device_time_total / 1e3} for e in top]}
+    del last_system
+    torch.cuda.empty_cache()
+    # K2 and K4 at the training batches' shape
+    b, n = batches[0]["audio"].shape
+    k2 = check_logmel(torch, dev, b, n)
+    k4 = check_specaug(torch, dev, b, spec_in=torch.randn((b, 1 + n // 160, 80), device=dev))
+
+    # ---- the roofline leg: one fused greedy generate through K1 -------------------
+    model, _ = build_1x_checkpoint(torch, dev, root)
+    split = eval_split_of(out_dir)
+    audio = np.stack([load_audio_segment(os.path.join(split, f"ep{e}.wav"), start)[
+        :WINDOW_SAMPLES] for e in range(4) for start in (10.0, 90.0)])
+    lens = np.full((8,), WINDOW_SAMPLES, np.int64)
+    prime = np.ones((8, 1), np.int64)
+    spec = BeamSearchSpec(beam_size=1, max_new_tokens=ROOFLINE_NEW, eos_id=-1,
+                          vocab_size=model.cfg.num_tokens,
+                          text_vocab_size=model.cfg.vocab_size, force_output=True)
+    gen = make_generate_fn(model, spec, decoder=FusedASRDecoder(model), device=dev)
+    gen(audio, lens, prime)                          # warm-up
+    counters["fused_layer_step"] = fused_layer_step
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tokens = gen(audio, lens, prime)["tokens"]
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    gen_launches = {k: fn.launches for k, fn in counters.items()}
+    del model, gen
+    torch.cuda.empty_cache()
+    roof = fl.greedy_decode_roofline(cfg, 8, WINDOW_SAMPLES, ROOFLINE_NEW)
+    gen_flops = fl.greedy_decode_flops(cfg, 8, WINDOW_SAMPLES, ROOFLINE_NEW)
+    roofline = {"batch": 8, "window_samples": WINDOW_SAMPLES, "new_tokens": ROOFLINE_NEW,
+                "seconds": gen_s, "launches": gen_launches,
+                "tokens_shape": list(tokens.shape),
+                "greedy_decode_flops": gen_flops, "roofline": roof,
+                "roofline_share_of_measured": roof["sol_secs"] / gen_s,
+                "mfu_pct_bf16": 100.0 * gen_flops / (gen_s * fl.PEAK_FLOPS["bfloat16"]),
+                "peaks": {"bytes_per_s": fl.PEAK_BYTES_PER_S, "flops": fl.PEAK_FLOPS}}
+
+    out = {"phase": "optim_1x", "card": card, "fixture_replay": replay, "runs": runs,
+           "train_launches": launches, "traced_step": traced,
+           "k2": {k: k2[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                     "shape")},
+           "k4": {k: k4[k] for k in ("ms", "graph_ms", "plain_ms", "bound_ms", "bound_by",
+                                     "where_ms", "shape")},
+           "step_ms_vs_lamb": {c: r["step_ms_mean_after_first"] for c, r in runs.items()},
+           "roofline_leg": roofline, "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    n_steps = len(configs) * OPTIM_STEPS
+    bad = {c: r for c, r in runs.items()
+           if not all(np.isfinite(r["losses"])) or max(r["card_vs_cpu_update_gap"]) > OPTIM_TOL
+           or r["params_without_grad"] or r["update_count"] != OPTIM_STEPS}
+    if bad:
+        fail(f"optim_1x: {sorted(bad)}: a loss not finite, a card update more than "
+             f"{OPTIM_TOL} of its leaf's largest from the CPU's, a parameter without a "
+             f"gradient or a wrong update count: "
+             f"{ {c: (r['losses'], r['card_vs_cpu_update_gap']) for c, r in bad.items()} }")
+    if launches != {"fused_logmel_project": n_steps, "spec_augment": n_steps}:
+        fail(f"optim_1x: training launches {launches}, expected {n_steps} of K2 and K4")
+    want_gen = {"fused_logmel_project": 1, "spec_augment": 0,
+                "fused_layer_step": cfg.n_decoder_layers * ROOFLINE_NEW}
+    if gen_launches != want_gen:
+        fail(f"optim_1x: the generate's launches {gen_launches}, expected {want_gen}")
+    return out, k2, k4
+
+
+def optim_entries(op, k2, k4, k1_rec, k2_gen):
+    """optim_1x's kernels: K2 and K4 in the training runs, K1 and K2 in the
+    roofline leg's generate."""
+    tl, gl = op["train_launches"], op["roofline_leg"]["launches"]
+    return [kernel_entry("optim_1x:train", k2, tl["fused_logmel_project"], k2["max_abs_err"]),
+            kernel_entry("optim_1x:train", k4, tl["spec_augment"], k4["max_abs_err"]),
+            kernel_entry("optim_1x:roofline", k1_rec, gl["fused_layer_step"],
+                         k1_rec["max_abs_err"]["x_out"], "none"),
+            kernel_entry("optim_1x:roofline", k2_gen, gl["fused_logmel_project"],
+                         k2_gen["max_abs_err"])]
+
+
 def align_entries(al, k2_utt, k2_mfcc):
     """The alignment phase's kernels: K2 in full_force_align's run (one
     launch an utterance; held and timed at the longest) and in the MFCCs of
@@ -4997,7 +5364,7 @@ def main() -> None:
     ap.add_argument("--phases", default="all",
                     choices=("all", "kernels", "train", "eval", "unaligned", "train_cli",
                              "lm", "spk", "noncausal", "embed", "cluster", "sd", "sad",
-                             "diar", "align"),
+                             "diar", "align", "optim"),
                     help="'kernels' stops after the build and the kernel checks; "
                          "'train' skips the serving and eval phases; 'eval' runs "
                          "eval_aligned_1x after the kernel checks, nothing else; "
@@ -5007,7 +5374,8 @@ def main() -> None:
                          "'noncausal' runs noncausal_1x after them; 'embed' runs "
                          "embed_1x after them; 'cluster' runs cluster_1x after them; "
                          "'sd' runs sd_baseline_1x after them; 'sad' runs sad_1x after them; "
-                         "'diar' runs diar_1x after them; 'align' runs align_1x after them")
+                         "'diar' runs diar_1x after them; 'align' runs align_1x after them; "
+                         "'optim' runs optim_1x after them (also in 'train')")
     ap.add_argument("--profile", action="store_true",
                     help="also trace one fused greedy generate per model, each eval "
                          "CLI run, one 2x training step, the training CLI's second "
@@ -5245,6 +5613,13 @@ def main() -> None:
         shutil.rmtree(out_dir, ignore_errors=True)
         finish(torch, entries, card, t_start)
         return
+    # ---- 17. RAdam, Adafactor and Lookahead ---------------------------------------------
+    if args.phases == "optim":
+        entries += optim_entries(*run_optim_1x(torch, dev, root, out_dir, card, k1["1x"]),
+                                 k1["1x"], k2["1x"])
+        shutil.rmtree(out_dir, ignore_errors=True)
+        finish(torch, entries, card, t_start)
+        return
     # ---- 7b. the training CLI --------------------------------------------------
     if args.phases == "train_cli":
         entries += train_cli_entries(run_train_cli_1x(torch, dev, root, out_dir, card,
@@ -5257,6 +5632,7 @@ def main() -> None:
     t2 = run_train_2x(torch, dev, out_dir, trace=args.profile)
     t1 = run_train_1x_checkpoint(torch, dev, root, out_dir)
     tc = run_train_cli_1x(torch, dev, root, out_dir, card, trace=args.profile)
+    op = run_optim_1x(torch, dev, root, out_dir, card, k1["1x"])
     shutil.rmtree(out_dir, ignore_errors=True)
     # each training path's kernels, each with the record of the shape that
     # path gave it: train_1x_checkpoint trains at B=8 x 20 s and generates at
@@ -5276,7 +5652,7 @@ def main() -> None:
         kernel_entry("train_1x_checkpoint:generate", k1["train_1x"],
                      t1_gen["fused_layer_step"], k1["train_1x"]["max_abs_err"]["x_out"],
                      "none"),
-    ] + train_cli_entries(tc)
+    ] + train_cli_entries(tc) + optim_entries(*op, k1["1x"], k2["1x"])
     finish(torch, entries, card, t_start)
 
 

@@ -5,10 +5,14 @@ Own copy of the dataclasses the serving, training and evaluation paths read
 (counterpart: tal_asrd_tpu/core/config.py). Field names and defaults are the
 same, so a test can build both packages' configs from one set of keyword
 arguments. Fields that only select a TPU lowering (`use_pallas`,
-`spectrum_impl`, `conv_impl`) have no meaning here and are left out.
+`spectrum_impl`, `conv_impl`) have no meaning here and are left out, and
+so is `MeshConfig` (parallelism is not ported yet). `to_json` writes a
+config as the reference's does.
 """
 from __future__ import annotations
 
+import dataclasses
+import json
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -215,3 +219,12 @@ class DecodeConfig:
 
 # Fields read only by paths not ported yet, and the ROADMAP item of each path.
 _UNPORTED_DECODE_FIELDS: dict = {}
+
+
+def to_json(cfg) -> str:
+    def default(o):
+        if dataclasses.is_dataclass(o):
+            return dataclasses.asdict(o)
+        raise TypeError(type(o))
+
+    return json.dumps(dataclasses.asdict(cfg), indent=2, default=default)

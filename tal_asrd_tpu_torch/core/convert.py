@@ -32,11 +32,14 @@ weight to a grouped-conv kernel [K, C_in/G, C_out]. bfloat16 tensors become
 bfloat16 bit patterns (`core/checkpoint.py`), every other tensor a numpy
 array of its dtype.
 
+`unconvert_entry` is that inverse for one entry, as a view (the optimizers
+factor and update a parameter in the reference's layout through it).
 `params_spec` gives the tree's shapes and dtypes alone (the target of a
 partial load), and `load_partial_into` copies in what such a load returned.
 """
 from __future__ import annotations
 
+import functools
 import re
 from typing import Any, Dict, Tuple
 
@@ -103,7 +106,7 @@ def params_spec(model: nn.Module) -> Dict[str, Any]:
     parameters' metadata: nothing is copied from the device."""
     leaves = []
     for name, t in model.state_dict().items():
-        path, t = _unconvert_entry(name, t.detach().to("meta"))
+        path, t = unconvert_entry(name, t.detach().to("meta"))
         dtype = BFLOAT16_BITS if t.dtype == torch.bfloat16 else np.dtype(
             str(t.dtype).replace("torch.", ""))
         leaves.append((path, LeafSpec(t.shape, dtype)))
@@ -123,7 +126,9 @@ def load_partial_into(model: nn.Module, tree: Dict[str, Any]) -> None:
     model.load_state_dict(loaded, strict=False)     # shapes checked
 
 
-def _unconvert_entry(name: str, t: torch.Tensor) -> Tuple[Tuple[str, ...], torch.Tensor]:
+@functools.lru_cache(maxsize=None)
+def _reference_path(name: str) -> Tuple[Tuple[str, ...], str]:
+    """A state_dict key -> (the reference's module path, the leaf's name)."""
     parts = name.split(".")
     path = []
     i = 0
@@ -134,11 +139,19 @@ def _unconvert_entry(name: str, t: torch.Tensor) -> Tuple[Tuple[str, ...], torch
         else:
             path.append(parts[i])
             i += 1
-    leaf = parts[-1]
+    return tuple(path), parts[-1]
+
+
+def unconvert_entry(name: str, t: torch.Tensor) -> Tuple[Tuple[str, ...], torch.Tensor]:
+    """A state_dict entry -> (the reference's key path, `t` in the
+    reference's layout). The layout is a view of `t` (a transpose or a
+    permutation), so writing into it writes into `t`."""
+    path, leaf = _reference_path(name)
+    path = list(path)
     if leaf == "weight" and path and path[-1] == "embedding":
         return tuple(path) + ("embedding",), t
     if leaf == "weight":
-        if t.dim() == 2 and path[0] == "encoder":     # pointwise conv
+        if t.dim() == 2 and path[:1] == ["encoder"]:  # pointwise conv
             t = t.T[None]
         elif t.dim() == 2:                           # Dense
             t = t.T
@@ -157,7 +170,7 @@ def state_dict_to_params(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     arrays; `params_to_state_dict` of the result gives the tensors back."""
     tree: Dict[str, Any] = {}
     for name, t in state_dict.items():
-        path, t = _unconvert_entry(name, t)
+        path, t = unconvert_entry(name, t)
         node = tree
         for part in path[:-1]:
             node = node.setdefault(part, {})

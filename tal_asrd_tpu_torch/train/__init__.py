@@ -5,7 +5,7 @@ from tal_asrd_tpu_torch.train.losses import (
     masked_mean,
     masked_token_loss,
 )
-from tal_asrd_tpu_torch.train.optimizers import LAMB
+from tal_asrd_tpu_torch.train.optimizers import LAMB, Adafactor, Lookahead, RAdam
 from tal_asrd_tpu_torch.train.schedules import (
     constant_schedule,
     inv_sqrt_schedule,
@@ -27,6 +27,9 @@ __all__ = [
     "masked_mean",
     "masked_token_loss",
     "LAMB",
+    "RAdam",
+    "Adafactor",
+    "Lookahead",
     "constant_schedule",
     "inv_sqrt_schedule",
     "linear_decay_schedule",

@@ -11,16 +11,23 @@ Counterpart of tal_asrd_tpu/train/system.py `ASRSystem`:
     same masked cross entropy of the head's logits against `spk_ids[:, 1:]`
     (padding is excluded by the text mask, not by its id);
   * `train_step`: `grad_acc` micro-batches, their gradients averaged, one
-    LAMB update at the square-root-scaled learning rate with linear decay
-    over `max_steps` (constant without it); metrics loss, lm_loss,
-    spk_loss, grad_norm (the global norm of the averaged gradient);
+    optimizer update; metrics loss, lm_loss, spk_loss, grad_norm (the
+    global norm of the averaged gradient);
+  * `_make_optimizer`: LAMB at the square-root-scaled learning rate with
+    linear decay over `max_steps` (constant without it), as the
+    reference's; a subclass overrides it to train with another optimizer
+    (`train/optimizers.py`: RAdam, Adafactor, Lookahead), as a JAX user
+    would;
   * the model keeps f32 parameters and computes in `compute_dtype` (bf16
     by default, as the reference trains).
 
 The system is stateful, as PyTorch is: it owns the model, the optimizer and
 the step count; `state_tree` / `load_state_tree` carry them in the layout of
-the reference's TrainState ({"step", "params", "opt_state": {"count", "mu",
-"nu"}}, flax parameter names), which the checkpoint manager writes. `step`
+the reference's TrainState ({"step", "params", "opt_state"}, flax parameter
+names; `opt_state` the layout of the optimizer's JAX state, LAMB's
+{"count", "mu", "nu"}), which the checkpoint manager writes.
+`load_state_tree` restores LAMB's alone (no path of the reference resumes
+another optimizer). `step`
 and the optimizer's update count (`update_count`, the schedule's count)
 part when the training CLI restores the step without the optimizer state,
 as the reference's do. `params_spec` / `load_params` carry a partial load
@@ -69,7 +76,7 @@ METRIC_KEYS = ("loss", "lm_loss", "spk_loss")
 
 
 class ASRSystem:
-    """Owns the model (f32 parameters), the LAMB optimizer and the step."""
+    """Owns the model (f32 parameters), the optimizer and the step."""
 
     def __init__(self, model_cfg: ModelConfig,
                  train_cfg: TrainConfig = TrainConfig(),
@@ -90,8 +97,14 @@ class ASRSystem:
         self.model = ASRModel(model_cfg, frontend_cfg, specaug_cfg,
                               dtype=torch.float32, device=device,
                               generator=generator, compute_dtype=compute_dtype)
-        self.optimizer = LAMB(self.model.parameters(), self._schedule())
+        self.optimizer = self._make_optimizer()
         self.step = 0
+
+    def _make_optimizer(self) -> torch.optim.Optimizer:
+        """The reference's optimizer: LAMB at `_schedule()`, built from the
+        named parameters (an optimizer that needs the reference's names,
+        Adafactor, finds them there)."""
+        return LAMB(self.model.named_parameters(), self._schedule())
 
     def _schedule(self):
         tc = self.train_cfg
@@ -105,8 +118,9 @@ class ASRSystem:
         """Fresh parameters from the CPU `generator`, zero optimizer
         moments, step 0."""
         self.model.reset_parameters(generator)
-        self.optimizer.state.clear()
+        self.optimizer.reset_state()
         self.step = 0
+
 
     # ------------------------------------------------------------------
     def _to_device(self, batch: Batch) -> Dict[str, torch.Tensor]:
@@ -246,25 +260,17 @@ class ASRSystem:
 
     def state_tree(self) -> Dict[str, Any]:
         """The training state as numpy trees in the reference TrainState's
-        layout; moments are zero before the first step."""
-        named = dict(self.model.named_parameters())
-
-        def moment(key):
-            return state_dict_to_params({
-                n: self.optimizer.state[p][key] if p in self.optimizer.state
-                else torch.zeros_like(p) for n, p in named.items()})
-        return {"step": np.asarray(self.step, np.int32),
-                "params": self.params_tree(),
-                "opt_state": {"count": np.asarray(self.update_count(), np.int32),
-                              "mu": moment("exp_avg"), "nu": moment("exp_avg_sq")}}
+        layout, its `opt_state` that of the optimizer's JAX state
+        (`reference_state()`); moments are zero before the first step."""
+        return {"step": np.asarray(self.step, np.int32), "params": self.params_tree(),
+                "opt_state": self.optimizer.reference_state()}
 
     def update_count(self) -> int:
-        """LAMB updates made since its state was last reset: the learning
-        rate schedule's count. It equals `step` unless the step counter was
-        restored without the optimizer state (a params-only warm start)."""
-        for state in self.optimizer.state.values():
-            return int(state["step"])
-        return 0
+        """Optimizer updates made since its state was last reset: the
+        learning rate schedule's count. It equals `step` unless the step
+        counter was restored without the optimizer state (a params-only
+        warm start)."""
+        return self.optimizer.update_count()
 
     def params_spec(self) -> Dict[str, Any]:
         """The parameter tree's shapes and dtypes (`core.convert.params_spec`),
@@ -278,7 +284,12 @@ class ASRSystem:
         load_partial_into(self.model, tree)
 
     def load_state_tree(self, tree: Dict[str, Any]) -> None:
-        """Restore parameters, moments and step from `state_tree`'s layout."""
+        """Restore parameters, moments and step from `state_tree`'s layout.
+        LAMB only: no path of the reference resumes another optimizer."""
+        if type(self.optimizer) is not LAMB:
+            raise TypeError(f"load_state_tree restores LAMB's state; this system trains "
+                            f"with {type(self.optimizer).__name__}, which no path of the "
+                            "reference resumes")
         self.model.load_state_dict(params_to_state_dict(tree["params"]), strict=True)
         count = int(tree["opt_state"]["count"])
         mu = params_to_state_dict(tree["opt_state"]["mu"])
