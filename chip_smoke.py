@@ -17,6 +17,7 @@
     python3 chip_smoke.py --phases diar      # ... + first diarization (UIS-RNN) only
     python3 chip_smoke.py --phases align     # ... + forced alignment only
     python3 chip_smoke.py --phases optim     # ... + RAdam, Adafactor, Lookahead only
+    python3 chip_smoke.py --phases parallel  # ... + parallelism (torchrun, gloo meshes) only
 
 Builds the port's CUDA kernels from tal_asrd_tpu_torch/csrc/ with nvcc, holds
 each against its plain PyTorch version on the card at the shapes its paths
@@ -167,11 +168,22 @@ step's update held against the same optimizer on the CPU, each `step()`
 timed (`utils.profiling`), one step traced; and one fused greedy 1x
 generate (K1, K2) beside `utils.flops`' roofline at the H100's peaks.
 
+Then parallelism (`parallel_1x`, `--phases parallel`, also in `train` and
+`all`; `run_parallel_1x`): the training CLI under `torchrun
+--nproc-per-node 1` (NCCL, a 1 x 1 mesh) against it without, bit for bit;
+gloo groups of 2 and 4 processes sharing the card for meshes (2, 1), (1,
+2), (2, 2), 4 steps of the tracked checkpoint at 16 x 30 s in f32 against
+one process (every rank's K2 and K4 launches, its step times and
+collectives' share); `ShardedCheckpointManager` on (1, 2); the sharded
+decode on two parts of the card; and, on the CPU, 8 gloo processes for the
+2 x 2 x 2 multi-slice step against a flat 4 x 2 one.
+
 Prints one JSON object per line: `device`, one `kernel` line per check,
 `k3_vs_k1_chain`, `k1_determinism`, `k3_determinism`, `kernel_timing`, one `serve_*` line per configuration,
 `eval_aligned_1x`, `prefill_handoff`, `eval_unaligned_1x`, `lm_fusion_1x`, `spk_head_1x`,
 `noncausal_1x`, `embed_1x`, `cluster_1x`, `sd_baseline_1x`, `sad_1x`, `diar_1x`,
 `align_1x`, `train_2x`, `train_1x_checkpoint`, `train_cli_1x`, `optim_fixture_replay`, `optim_1x`,
+`parallel_1x`,
 `kernels` (every kernel of each path with
 its launch count in that path's one timed run, its error against the plain
 version, its time, the plain version's, a library call's where one exists,
@@ -187,6 +199,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import filecmp
 import functools
 import io
 import json
@@ -5359,12 +5372,323 @@ def serving_phases(torch, dev, root, args, k1, k2, checks, timed):
     return launches, entries
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: parallelism (parallel_1x)
+# ---------------------------------------------------------------------------
+PARALLEL_SPLITS = {"train": dict(n_episodes=6, episode_seconds=120.0, n_speakers=8, seed=0),
+                   "valid": dict(n_episodes=1, episode_seconds=120.0, n_speakers=8, seed=101),
+                   "cli_train": dict(n_episodes=2, episode_seconds=120.0, n_speakers=8, seed=0)}
+PARALLEL_CLI_STEPS = 2
+PARALLEL_MESHES = ((2, 1), (1, 2), (2, 2))
+PARALLEL_STEPS, PARALLEL_BATCH = 4, 16
+# N ranks against one on the same global batches, f32 compute, dropout 0
+PARALLEL_LOSS_RTOL = 1e-4
+PARALLEL_LEAF_ATOL = 1e-4
+# the torchrun CLI leg against the CLI without it (bf16, dropout on, both
+# fresh processes: the same draws; training on the card is not bitwise
+# repeatable, and LAMB carries a rounding into steps of near-zero gradients)
+PARALLEL_CLI_RTOL = 1e-3
+PARALLEL_CLI_ATOL = 1e-3
+PARALLEL_TINY = dict(model_type="1x", num_speakers=4, n_mels=8, vocab_size=32, n_head=2,
+                     max_positions=64, dropout=0.0, embed_size=16, tds_depths=(1, 1, 1),
+                     tds_kernel=5, tds_dropout=0.0)
+
+
+def tiny_parallel_batch(seed, b=8, t=3200, l=12):
+    """A seeded batch of the tiny configuration (numpy)."""
+    rng = np.random.RandomState(seed)
+    lens = rng.randint(l // 2, l + 1, b)
+    return {"audio": (rng.randn(b, t) * 0.1).astype(np.float32),
+            "audio_lens": rng.randint(t // 2, t + 1, b).astype(np.int32),
+            "text": rng.randint(0, 36, (b, l)).astype(np.int32),
+            "text_mask": np.arange(l)[None, :] < lens[:, None],
+            "spk_ids": rng.randint(0, 4, (b, l)).astype(np.int32)}
+
+
+def tree_gap(a, b, relative=False):
+    """The largest absolute difference between two trees' float leaves
+    (with `relative`, each leaf's over its largest magnitude in `b`)."""
+    from tal_asrd_tpu_torch.core.checkpoint import tree_leaves
+    b = dict(tree_leaves(b))
+    gaps = []
+    for p, v in tree_leaves(a):
+        if np.asarray(v).dtype.kind != "f":
+            continue
+        w = np.asarray(b[p], np.float64)
+        gap = float(np.abs(np.asarray(v, np.float64) - w).max(initial=0.0))
+        gaps.append(gap / max(float(np.abs(w).max(initial=0.0)), 1e-30) if relative else gap)
+    return max(gaps)
+
+
+def parallel_batches(torch, root, split, n, b):
+    """n batches of b windows of `split` (fixed windows, det_seed 1234,
+    through the training CLI's collater at its 30 s bucket), numpy."""
+    from tal_asrd_tpu_torch.data.collate import BucketedCollater
+    from tal_asrd_tpu_torch.data.loader import DataLoader, ShardedSampler
+    from tal_asrd_tpu_torch.data.segment import SegmentDataset
+    from tal_asrd_tpu_torch.text.bpe import BpeTokenizer
+    tokenizer = BpeTokenizer(model_path=os.path.join(root, "accuracy_release", "bpe.model"))
+    ds = SegmentDataset(split, tokenizer, segment_size=30.0, tokenizer_speakers=True,
+                        speaker_map_loc=os.path.join(split, "speaker_map.json"),
+                        return_spk_ids=True, det_seed=1234)
+    loader = DataLoader(ds, b, BucketedCollater(tokenizer.pad_token_id, audio_int16=True),
+                        ShardedSampler(len(ds), shuffle=False), 0)
+    out = []
+    for batch in loader:
+        out.append({k: np.asarray(batch[k]) for k in
+                    ("audio", "audio_lens", "text", "text_mask", "spk_ids")})
+        if len(out) == n:
+            return out
+    fail(f"parallel_1x: {split} gives fewer than {n} batches of {b}")
+
+
+def run_parallel_1x(torch, dev, root, out_dir, card):
+    """Parallelism (A13) on the card. (a) `torchrun --nproc-per-node 1 -m
+    tal_asrd_tpu_torch.cli.train --mesh-data 1 --mesh-model 1` (NCCL) from
+    the tracked checkpoint, PARALLEL_CLI_STEPS steps at 16 x 30 s, beside
+    the same CLI run without torchrun (`python -m`, a fresh process too):
+    logged validation losses and the files, byte for byte (leaf by leaf
+    where they differ). (b) gloo groups sharing cuda:0 for meshes (2, 1),
+    (1, 2) (one group of 2 processes, in turn) and (2, 2): 4 steps of the
+    tracked checkpoint (f32, dropout 0, SpecAugment and token replacement
+    on) against one process on the same global batches, each rank's K2 and
+    K4 launches, the step time and its collectives' share. (c)
+    `ShardedCheckpointManager` on (1, 2), in the 2-process group after its
+    legs: an asynchronous save and the restore into another state, bit for
+    bit with its placements. (d) `decode/sharded.py` on ['cuda:0', 'cuda:0'] against
+    the unsplit greedy decode. (e) on the CPU, 8 gloo processes: one step
+    of the tiny configuration on a 2 x 2 x 2 multi-slice mesh against a
+    flat 4 x 2."""
+    import dataclasses
+
+    from tal_asrd_tpu_torch.cli.args import build_configs, get_argparser
+    from tal_asrd_tpu_torch.core.checkpoint import load_pytree
+    from tal_asrd_tpu_torch.core.config import TrainConfig
+    from tal_asrd_tpu_torch.data.synth import build_synth_corpus
+    from tal_asrd_tpu_torch.decode.beam import BeamSearchSpec, beam_search
+    from tal_asrd_tpu_torch.decode.sharded import make_sharded_decode
+    from tal_asrd_tpu_torch.parallel.launch import (
+        build_system, save_batches, sequence_worker, start_group, train_steps, train_worker)
+    from tal_asrd_tpu_torch.text.bpe import BpeTokenizer
+
+    t_phase = time.perf_counter()
+    base = os.path.join(out_dir, "parallel")
+    dirs = {k: os.path.join(base, k) for k in ("train", "valid", "cli_train", "ckpts", "out",
+                                                 "sharded")}
+    for name, split in PARALLEL_SPLITS.items():
+        build_synth_corpus(dirs[name], **split)
+    bpe = os.path.join(root, "accuracy_release", "bpe.model")
+    tracked = os.path.join(root, "accuracy_release", "avg_last_3.bf16.msgpack")
+    rec = {"phase": "parallel_1x", "card": card}
+
+    # (e) starts first: CPU processes, beside the card's legs
+    tiny = {"model": PARALLEL_TINY, "resweight": 0.4, "return": "params",
+            "frontend": dict(n_mels=8, n_fft=64, win_length=64, hop_length=32),
+            "specaug": dict(num_freq_masks=0, num_time_masks=0),
+            "train": dict(batch_size=8, lr=1e-3, max_steps=50, token_replace_prob=0.0),
+            "batches": [tiny_parallel_batch(0)]}
+    slices = {shape: start_group(train_worker, 8, dict(tiny, mesh=shape), device="cpu",
+                                 timeout=400) for shape in ((2, 2, 2), (4, 2))}
+
+    # (a) the CLI under torchrun on NCCL, and without it
+    common = ["--train-data", dirs["cli_train"], "--valid-data", dirs["valid"],
+              "--tokenizer", bpe, "--model-type", "1x", "--num-speakers", "8",
+              "--batch-size", str(PARALLEL_BATCH), "--max-secs", "28.5", "--num-workers", "0",
+              "--lr", "2e-4", "--max-steps", str(PARALLEL_CLI_STEPS), "--shiftaug",
+              "--cache-items", "--audio-int16", "--load", tracked,
+              "--checkpoint-path", dirs["ckpts"], "--out-dir", dirs["out"], "--device", dev]
+    cli = {}
+    # both in fresh processes, one thread each (torchrun sets
+    # OMP_NUM_THREADS=1 for its processes)
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    launchers = {"plain": [sys.executable, "-m", "tal_asrd_tpu_torch.cli.train"],
+                 "torchrun": [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                              "--nproc-per-node", "1", "-m", "tal_asrd_tpu_torch.cli.train"]}
+    # the two runs side by side on the card (each run's kernels give the
+    # same bits whatever else the card runs)
+    t0 = time.perf_counter()
+    procs = {}
+    for name, launcher in launchers.items():
+        with open(os.path.join(base, f"{name}.stderr"), "w") as err:
+            procs[name] = subprocess.Popen(
+                launcher + common + ["--name", name]
+                + (["--mesh-data", "1", "--mesh-model", "1"] if name == "torchrun" else []),
+                cwd=root, env=env, stdout=subprocess.DEVNULL, stderr=err)
+    for name, proc in procs.items():
+        try:
+            proc.wait(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+        cli[f"{name}_s"] = time.perf_counter() - t0
+    for name, proc in procs.items():
+        if proc.returncode != 0:
+            for p in procs.values():
+                p.kill()
+            with open(os.path.join(base, f"{name}.stderr")) as f:
+                fail(f"parallel_1x: {name} cli.train exited {proc.returncode}: "
+                     f"{f.read()[-3000:]}")
+    logs = {}
+    for name in ("plain", "torchrun"):
+        with open(os.path.join(dirs["out"], f"{name}.metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f if line.strip()]
+        logs[name] = [(r["step"], k, r[k]) for r in recs for k in ("val_loss_step", "val_loss")
+                      if k in r]
+    if [x[:2] for x in logs["plain"]] != [x[:2] for x in logs["torchrun"]] or not logs["plain"]:
+        fail(f"parallel_1x: the torchrun CLI logged {logs['torchrun']}, without it "
+             f"{logs['plain']}")
+    cli["logged"] = logs
+    cli["loss_gap_rel"] = max(abs(a[2] - b[2]) / abs(b[2])
+                              for a, b in zip(logs["torchrun"], logs["plain"]))
+    ckpts = {name: sorted(f for f in os.listdir(os.path.join(dirs["ckpts"], name))
+                          if f.startswith(("ckpt_", "state_"))) for name in logs}
+    if ckpts["plain"] != ckpts["torchrun"]:
+        fail(f"parallel_1x: the CLI runs wrote {ckpts}")
+    cli["files"] = ckpts["plain"]
+
+    def files_gap(prefix, relative):
+        gaps = [0.0]
+        for f in ckpts["plain"]:
+            a, b = (os.path.join(dirs["ckpts"], name, f) for name in ("torchrun", "plain"))
+            if f.startswith(prefix) and not filecmp.cmp(a, b, shallow=False):
+                gaps.append(tree_gap(load_pytree(a), load_pytree(b), relative))
+        return max(gaps)
+    cli["leaf_gap"] = files_gap("ckpt_", False)
+    cli["state_gap_rel"] = files_gap("state_", True)
+    print(f"parallel_1x: torchrun CLI vs without: loss gap {cli['loss_gap_rel']:.3g} "
+          f"(relative), leaf gap {cli['leaf_gap']:.3g}, state gap {cli['state_gap_rel']:.3g} "
+          f"(relative to each leaf's largest)", flush=True)
+    rec["cli"] = cli
+    if not (cli["loss_gap_rel"] <= PARALLEL_CLI_RTOL and cli["leaf_gap"] <= PARALLEL_CLI_ATOL):
+        fail(f"parallel_1x: the torchrun CLI parts from the CLI without it: {cli}")
+
+    # (b) gloo groups on cuda:0
+    batches = parallel_batches(torch, root, dirs["train"], PARALLEL_STEPS, PARALLEL_BATCH)
+    batches_path = os.path.join(base, "batches.npz")
+    save_batches(batches_path, batches)
+    args = get_argparser(is_train=True).parse_args(common + ["--name", "spec"])
+    model_cfg = build_configs(args, BpeTokenizer(model_path=bpe))[0]
+    model_cfg = dataclasses.replace(model_cfg, dropout=0.0, tds_dropout=0.0)
+    spec = {"model": dataclasses.asdict(model_cfg),
+            "train": dataclasses.asdict(TrainConfig(batch_size=PARALLEL_BATCH, lr=2e-4)),
+            "compute_dtype": "float32", "load": tracked, "batches_path": batches_path,
+            "no_tf32": True, "return": "params", "time_collectives": True}
+    one = build_system(spec, dev)
+    one_run = train_steps(one, batches, dev)
+    one_params = one.params_tree()
+    del one
+    torch.cuda.empty_cache()
+    # one group a world size, its runs one after another (one start-up each):
+    # the 2-process group runs (2, 1), (1, 2) and the sharded checkpoint
+    seqs = {2: [], 4: []}
+    for shape in PARALLEL_MESHES:
+        seqs[shape[0] * shape[1]].append(
+            (f"{shape[0]}x{shape[1]}", "train_worker", dict(spec, mesh=shape)))
+    seqs[2].append(("checkpoint", "checkpoint_worker",
+                    dict(spec, mesh=(1, 2), dir=dirs["sharded"])))
+    runs = {}
+    for world, seq in seqs.items():
+        t0 = time.perf_counter()
+        for rank_out in start_group(sequence_worker, world, {"sequence": seq}, device=dev,
+                                    timeout=600).wait():
+            for key, out in rank_out.items():
+                runs.setdefault(key, []).append(out)
+        rec[f"group_{world}_s"] = time.perf_counter() - t0
+    legs = {}
+    for shape in PARALLEL_MESHES:
+        key = f"{shape[0]}x{shape[1]}"
+        ranks = runs[key]
+        leg = {"rows_per_rank": PARALLEL_BATCH // shape[0],
+               "loss_gap_rel": max(abs(r["metrics"][i]["loss"] - m["loss"]) / abs(m["loss"])
+                                   for r in ranks for i, m in enumerate(one_run["metrics"])),
+               "leaf_gap": tree_gap(ranks[0]["state"], one_params),
+               "launches_by_rank": [r["launches"] for r in ranks],
+               "step_ms_by_rank": [[1e3 * x for x in r["step_s"]] for r in ranks],
+               "collective_share_by_rank": [r["collective_s"] / sum(r["step_s"])
+                                            for r in ranks],
+               "collective_calls_by_rank": [r["collective_calls"] for r in ranks],
+               "losses": [m["loss"] for m in ranks[0]["metrics"]]}
+        legs[key] = leg
+        print(f"parallel_1x: mesh {key}: loss gap {leg['loss_gap_rel']:.3g}, leaf gap "
+              f"{leg['leaf_gap']:.3g}, launches {leg['launches_by_rank']}", flush=True)
+        short = [r for r in ranks if min(r["launches"].values()) < PARALLEL_STEPS]
+        if short:
+            fail(f"parallel_1x: mesh {key}: a rank launched K2 or K4 fewer than "
+                 f"{PARALLEL_STEPS} times: {leg['launches_by_rank']}")
+        if not (leg["loss_gap_rel"] <= PARALLEL_LOSS_RTOL
+                and leg["leaf_gap"] <= PARALLEL_LEAF_ATOL):
+            fail(f"parallel_1x: mesh {key} parts from one process: {leg}")
+    rec["one_process"] = {"losses": [m["loss"] for m in one_run["metrics"]],
+                          "step_ms": [1e3 * x for x in one_run["step_s"]],
+                          "launches": one_run["launches"]}
+    rec["legs"] = legs
+
+    # (c) the sharded checkpoint (run above in the 2-process group)
+    ck = runs["checkpoint"]
+    rec["sharded_checkpoint"] = {k: [r[k] for r in ck] for k in
+                                 ("bit_equal", "placements_kept", "sharded_leaves",
+                                  "save_return_s", "wait_s", "load_s")}
+    print(f"parallel_1x: sharded checkpoint {rec['sharded_checkpoint']}", flush=True)
+    if not all(r["bit_equal"] and r["placements_kept"] for r in ck):
+        fail(f"parallel_1x: the sharded checkpoint did not come back whole: {ck}")
+
+    # (d) the sharded decode, two parts on the card
+    model = tracked_1x(torch, dev, root, torch.float32)
+    tok = BpeTokenizer(model_path=bpe)
+    dspec = BeamSearchSpec(beam_size=1, max_new_tokens=32, eos_id=tok.eos_token_id,
+                           vocab_size=model.cfg.num_tokens, text_vocab_size=len(tok),
+                           force_output=True)
+    b0 = batches[0]
+    audio = torch.from_numpy(b0["audio"][:4].astype(np.float32) / 32768.0)
+    lens = torch.from_numpy(b0["audio_lens"][:4])
+    prime = torch.from_numpy(b0["text"][:4, :1]).long()
+    with torch.inference_mode():
+        whole = beam_search(model, model.encode(audio.to(dev), lens.to(dev)), prime.to(dev),
+                            dspec)
+    parts = make_sharded_decode(model, dspec, [dev, dev])(audio, lens, prime)
+    same = (torch.equal(whole["tokens"].cpu(), parts["tokens"].cpu())
+            and torch.equal(whole["lengths"].cpu(), parts["lengths"].cpu()))
+    rec["sharded_decode"] = {"rows": 4, "tokens_equal": same,
+                             "lengths": parts["lengths"].cpu().tolist()}
+    if not same:
+        fail("parallel_1x: the sharded decode on two parts of cuda:0 parts from the unsplit")
+    del model
+
+    # (e) the multi-slice step
+    got = {shape: g.wait() for shape, g in slices.items()}
+    a, b = got[(2, 2, 2)][0], got[(4, 2)][0]
+    rec["multislice_cpu"] = {"loss": [a["metrics"][0]["loss"], b["metrics"][0]["loss"]],
+                             "leaf_gap": tree_gap(a["state"], b["state"]),
+                             "note": "8 gloo processes on the CPU, tiny configuration"}
+    if rec["multislice_cpu"]["leaf_gap"] > 1e-7 or abs(
+            a["metrics"][0]["loss"] - b["metrics"][0]["loss"]) > 1e-6 * abs(b["metrics"][0]["loss"]):
+        fail(f"parallel_1x: the 2x2x2 step parts from the 4x2 one: {rec['multislice_cpu']}")
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+    return rec
+
+
+def parallel_entries(torch, dev, pr):
+    """K2 and K4 of each gloo leg, checked and timed at a rank's rows; the
+    launches are the fewest any rank made."""
+    entries = []
+    for key, leg in pr["legs"].items():
+        rows = leg["rows_per_rank"]
+        k2 = check_logmel(torch, dev, rows, 480_000)
+        k4 = check_specaug(torch, dev, rows, spec_in=torch.randn((rows, 3001, 80), device=dev))
+        low = {k: min(r[k] for r in leg["launches_by_rank"]) for k in leg["launches_by_rank"][0]}
+        entries += [kernel_entry(f"parallel_1x:{key}", k2, low["fused_logmel_project"],
+                                 k2["max_abs_err"]),
+                    kernel_entry(f"parallel_1x:{key}", k4, low["spec_augment"],
+                                 k4["max_abs_err"])]
+    return entries
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default="all",
                     choices=("all", "kernels", "train", "eval", "unaligned", "train_cli",
                              "lm", "spk", "noncausal", "embed", "cluster", "sd", "sad",
-                             "diar", "align", "optim"),
+                             "diar", "align", "optim", "parallel"),
                     help="'kernels' stops after the build and the kernel checks; "
                          "'train' skips the serving and eval phases; 'eval' runs "
                          "eval_aligned_1x after the kernel checks, nothing else; "
@@ -5375,7 +5699,8 @@ def main() -> None:
                          "embed_1x after them; 'cluster' runs cluster_1x after them; "
                          "'sd' runs sd_baseline_1x after them; 'sad' runs sad_1x after them; "
                          "'diar' runs diar_1x after them; 'align' runs align_1x after them; "
-                         "'optim' runs optim_1x after them (also in 'train')")
+                         "'optim' runs optim_1x after them (also in 'train'); 'parallel' "
+                         "runs parallel_1x after them (also in 'train')")
     ap.add_argument("--profile", action="store_true",
                     help="also trace one fused greedy generate per model, each eval "
                          "CLI run, one 2x training step, the training CLI's second "
@@ -5613,6 +5938,12 @@ def main() -> None:
         shutil.rmtree(out_dir, ignore_errors=True)
         finish(torch, entries, card, t_start)
         return
+    # ---- 18. parallelism --------------------------------------------------------------------
+    if args.phases == "parallel":
+        entries += parallel_entries(torch, dev, run_parallel_1x(torch, dev, root, out_dir, card))
+        shutil.rmtree(out_dir, ignore_errors=True)
+        finish(torch, entries, card, t_start)
+        return
     # ---- 17. RAdam, Adafactor and Lookahead ---------------------------------------------
     if args.phases == "optim":
         entries += optim_entries(*run_optim_1x(torch, dev, root, out_dir, card, k1["1x"]),
@@ -5633,6 +5964,7 @@ def main() -> None:
     t1 = run_train_1x_checkpoint(torch, dev, root, out_dir)
     tc = run_train_cli_1x(torch, dev, root, out_dir, card, trace=args.profile)
     op = run_optim_1x(torch, dev, root, out_dir, card, k1["1x"])
+    pr = run_parallel_1x(torch, dev, root, out_dir, card)
     shutil.rmtree(out_dir, ignore_errors=True)
     # each training path's kernels, each with the record of the shape that
     # path gave it: train_1x_checkpoint trains at B=8 x 20 s and generates at
@@ -5652,7 +5984,8 @@ def main() -> None:
         kernel_entry("train_1x_checkpoint:generate", k1["train_1x"],
                      t1_gen["fused_layer_step"], k1["train_1x"]["max_abs_err"]["x_out"],
                      "none"),
-    ] + train_cli_entries(tc) + optim_entries(*op, k1["1x"], k2["1x"])
+    ] + train_cli_entries(tc) + optim_entries(*op, k1["1x"], k2["1x"]) + parallel_entries(
+        torch, dev, pr)
     finish(torch, entries, card, t_start)
 
 

@@ -2,7 +2,7 @@
 
 The JAX package `tal_asrd_tpu` is the reference; this package mirrors its
 sub-package names (core, ops, models, decode, train, eval, data, text, cli,
-utils, vad, align, diarization, baseline) so the counterpart of a module is
+utils, vad, align, diarization, baseline, parallel) so the counterpart of a module is
 found under the same path, and each sub-package exports the JAX one's
 names. It imports torch, numpy and scipy only.
 
@@ -18,10 +18,12 @@ sharded decode, the speaker-embedding export and metric head
 (`cli.train_sd`, `cli.sad`), UIS-RNN diarization (`cli.uisrnn`) and forced
 alignment, RAdam, Adafactor and Lookahead, and the utilities (`utils.flops`
 at the H100's peaks, `utils.profiling` on torch.profiler, the
-sentencepiece importer, the GPT-2 tokenizer), with four hand-written CUDA
-kernels (ops/cuda_*.py; sources in csrc/). Parallelism (the JAX package's
-`parallel` sub-package and `MeshConfig`) is not ported yet.
-Every entry point takes `device`, which defaults to "cuda".
+sentencepiece importer, the GPT-2 tokenizer), and data- and
+tensor-parallel training on a torch.distributed mesh (`parallel`,
+`cli.train --mesh-data / --mesh-model` under torchrun, the sharded
+checkpoint manager), with four hand-written CUDA kernels (ops/cuda_*.py;
+sources in csrc/). Every entry point takes `device`, which defaults to
+"cuda".
 """
 
 from tal_asrd_tpu_torch.core.utils import (

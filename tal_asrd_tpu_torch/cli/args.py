@@ -5,9 +5,9 @@ Counterpart of tal_asrd_tpu/cli/args.py (`get_argparser(is_train)`,
 invocation of `python -m tal_asrd_tpu.cli.test`, `.train` or `.train_lm`
 runs unchanged as `python -m tal_asrd_tpu_torch.cli.test`, `.train` or
 `.train_lm`, plus `--device`. --spk-weight > 0 builds the model with the
-separate speaker head (`use_speaker_head`). A mesh of more than one device
-(--mesh-data / --mesh-model, A13) is not ported yet: the training CLI
-refuses it, naming the item.
+separate speaker head (`use_speaker_head`). --mesh-data / --mesh-model
+shape the training CLI's process mesh (parallel/mesh.py; run it under
+torchrun).
 
 With the environment variable TAL_TINY_ARCH set, `build_configs` shrinks
 the model to the reference's debug architecture (TDS depths (1, 1, 1),

@@ -3,6 +3,8 @@
     python -m tal_asrd_tpu_torch.cli.train --train-data DIR --valid-data DIR \
         --tokenizer bpe.model --model-type 1x --name run1 [--num-speakers N] \
         [--load CKPT] [--shiftaug | --alignaug] [--device cpu]
+    torchrun --nproc-per-node N -m tal_asrd_tpu_torch.cli.train ... \
+        --mesh-data D --mesh-model M        # D x M = N processes, one a card
 
 Counterpart of tal_asrd_tpu/cli/train.py, with the same flags (plus
 `--device`, default cuda): aligned datasets (one per
@@ -17,20 +19,33 @@ validation.
 
 Randomness follows the reference: `set_seed(42)` seeds Python's and numpy's
 generators, from which the sampler's shuffle and the segment windows are
-drawn (with --num-workers 0 in the reference's order), and gives the CPU
-generator of the initial weights. --spk-weight > 0 trains the separate
+drawn (with --num-workers 0 in the reference's order), and PyTorch's
+(dropout), and gives the CPU generator of the initial weights. --spk-weight > 0 trains the separate
 speaker head beside the decoder (its loss weighted by the flag; the data
-then carries no speaker tokens). A mesh of more than one device (A13) is
+then carries no speaker tokens).
+
+Under torchrun (or in a process group the caller made) the CLI trains on a
+('data', 'model') mesh of --mesh-data x --mesh-model processes
+(parallel/mesh.py; -1 data: every process not on the model axis), NCCL on
+CUDA, gloo on the CPU. As the JAX CLI does, every process builds the same
+loader order, collates --batch-size rows a step as the global batch and
+keeps its rows; the learning rate scales by the square root of
+(data axis) x --batch-size x --grad-acc (TrainConfig.num_data_shards is
+the data axis's size); only process 0 logs and writes the checkpoints
+(the gathered full trees). Without a process group the mesh must be one
+process; a --batch-size that --grad-acc x the data axis does not divide is
 refused.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 import re
 import sys
 from typing import Any, Dict, List, Optional
 
 import numpy as np
+import torch.distributed as dist
 
 from tal_asrd_tpu_torch.cli.args import build_configs, get_argparser
 from tal_asrd_tpu_torch.core.checkpoint import (
@@ -38,6 +53,7 @@ from tal_asrd_tpu_torch.core.checkpoint import (
     load_params_partial,
     load_pytree,
     merge_subtree,
+    tree_leaves,
 )
 from tal_asrd_tpu_torch.core.config import SpecAugmentConfig
 from tal_asrd_tpu_torch.core.utils import count_parameters, set_seed
@@ -50,12 +66,6 @@ from tal_asrd_tpu_torch.train.loop import Trainer, TrainerConfig
 from tal_asrd_tpu_torch.train.system import ASRSystem
 from tal_asrd_tpu_torch.utils.logging import MetricsLogger
 
-# Flags of paths that are not ported, with the ROADMAP item of each.
-UNPORTED = (
-    (lambda a: a.mesh_data not in (-1, 1) or a.mesh_model != 1,
-     "--mesh-data / --mesh-model: a mesh of more than one device (data or tensor "
-     "parallel) is ROADMAP A13"),
-)
 
 
 class ConcatDataset:
@@ -141,21 +151,42 @@ def load_weights(args, system: ASRSystem, num_tokens: int) -> None:
             expand_embeddings_to=num_tokens))
 
 
+def make_cli_mesh(args):
+    """(mesh or None, device, data axis size): the mesh of --mesh-data x
+    --mesh-model over the process group (torchrun's, or the caller's);
+    without one, a mesh of one process, or exit naming torchrun."""
+    from tal_asrd_tpu_torch.parallel.mesh import _resolve, init_distributed, layout_of, make_mesh
+    if dist.is_initialized() or "WORLD_SIZE" in os.environ:
+        device = init_distributed(args.device)
+        mesh = make_mesh(args.mesh_data, args.mesh_model, device_type=device.type)
+        return mesh, device, layout_of(mesh).data_size
+    try:
+        _resolve(1, (args.mesh_data, args.mesh_model))
+    except ValueError as e:
+        sys.exit(f"tal_asrd_tpu_torch.cli.train: {e} (no process group): launch a mesh with "
+                 f"torchrun --nproc-per-node N")
+    return None, args.device, 1
+
+
 def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
-    """Train. Returns {"system", "trainer", "metrics_path"}."""
+    """Train. Returns {"system", "trainer", "metrics_path"} (metrics_path
+    None on a process other than 0 of a mesh)."""
     args = get_argparser(is_train=True).parse_args(argv)
-    for refused, message in UNPORTED:
-        if refused(args):
-            sys.exit(f"tal_asrd_tpu_torch.cli.train: {message}, not ported yet")
+    mesh, device, data = make_cli_mesh(args)
+    if args.batch_size % (args.grad_acc * data):
+        sys.exit(f"tal_asrd_tpu_torch.cli.train: --batch-size {args.batch_size} does not split "
+                 f"into --grad-acc {args.grad_acc} micro-batches over a data axis of {data}")
+    lead = mesh is None or dist.get_rank() == 0
     generator = set_seed(42)
 
     tokenizer = BpeTokenizer(model_path=args.tokenizer if os.path.exists(args.tokenizer)
                              else os.path.join(args.cache_path, "tokenizer", args.tokenizer))
-    model_cfg, train_cfg, _ = build_configs(args, tokenizer)    # one data shard
+    model_cfg, train_cfg, _ = build_configs(args, tokenizer)
+    train_cfg = dataclasses.replace(train_cfg, num_data_shards=data)
     specaug = (SpecAugmentConfig(num_freq_masks=0, num_time_masks=0)
                if args.no_specaug else SpecAugmentConfig())
-    system = ASRSystem(model_cfg, train_cfg, specaug_cfg=specaug, device=args.device,
-                       generator=generator)
+    system = ASRSystem(model_cfg, train_cfg, specaug_cfg=specaug, device=device,
+                       generator=generator, mesh=mesh)
 
     train_ds, valid_ds = build_datasets(args, tokenizer)
     coll = BucketedCollater(tokenizer.pad_token_id, audio_int16=args.audio_int16)
@@ -164,13 +195,16 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     val_loader = DataLoader(valid_ds, args.val_batch_size or args.batch_size, coll,
                             ShardedSampler(len(valid_ds), shuffle=False), args.num_workers)
     batch0 = next(iter(val_loader))
-    print(f"Trainable params: {count_parameters(system.model):,}")
+    if lead:
+        n = (count_parameters(system.model) if system.shards is None else
+             sum(int(np.prod(s.shape)) for _, s in tree_leaves(system.params_spec())))
+        print(f"Trainable params: {n:,}")
 
     load_weights(args, system, model_cfg.num_tokens)
     maybe_restore_step(args, system)
 
-    logger = MetricsLogger(out_dir=args.out_dir, name=args.name, project=args.project,
-                           config=vars(args))
+    logger = (MetricsLogger(out_dir=args.out_dir, name=args.name, project=args.project,
+                            config=vars(args)) if lead else None)
     trainer = Trainer(
         system,
         TrainerConfig(
@@ -188,6 +222,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         generation_hook=system.make_generation_spotcheck(tokenizer, batch0),
     )
     trainer.fit(train_loader, val_loader)
+    if logger is None:
+        return {"system": system, "trainer": trainer, "metrics_path": None}
     logger.close()
     return {"system": system, "trainer": trainer, "metrics_path": logger.path}
 

@@ -2,6 +2,7 @@ from tal_asrd_tpu_torch.core.config import (
     DecodeConfig,
     FrontendConfig,
     LMConfig,
+    MeshConfig,
     ModelConfig,
     SDModelConfig,
     SpecAugmentConfig,
@@ -24,12 +25,12 @@ from tal_asrd_tpu_torch.core.checkpoint import (
     save_pytree,
 )
 
-# The JAX package's names, less MeshConfig: parallelism (ROADMAP A13) is not
-# ported yet.
+# The JAX package's names.
 __all__ = [
     "DecodeConfig",
     "FrontendConfig",
     "LMConfig",
+    "MeshConfig",
     "ModelConfig",
     "SDModelConfig",
     "SpecAugmentConfig",

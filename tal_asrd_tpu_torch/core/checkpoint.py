@@ -25,6 +25,14 @@ checkpoint lacks it), `filter_subtree` and `merge_subtree`.
 `CheckpointManager` keeps every saved parameter tree (`ckpt_<step>.msgpack`,
 `latest.json`) and full training states (`state_<step>.msgpack`), and
 averages the last k parameter trees (`average_params`).
+
+`ShardedCheckpointManager` writes a sharded training state (a nested dict
+of tensors and DTensors, `ASRSystem.sharded_state`) with
+torch.distributed.checkpoint (DCP): every process writes the shards it
+owns, asynchronously by default, into `state_<step>` directories, and
+restores into a template whose leaves keep their placements. The JAX
+package's manager writes orbax's format instead, which needs orbax and
+tensorstore to read; the two packages exchange the msgpack files.
 """
 from __future__ import annotations
 
@@ -514,3 +522,109 @@ class CheckpointManager:
     def latest_state_step(self) -> Optional[int]:
         steps = self.state_steps()
         return steps[-1] if steps else None
+
+
+class ShardedCheckpointManager:
+    """Sharded, asynchronous training-state checkpoints on DCP, for a
+    process group (every process calls every method).
+
+      * `save_state` starts the write and returns once the state is staged
+        (copied off the live tensors), so the write overlaps the next
+        steps; a new save waits for the previous one first, and
+        `wait_until_finished` waits for the last;
+      * `load_state(template)` restores in place into a template tree of
+        the same keys: each DTensor leaf gets its own shards, on the
+        template's device and with its placements, so no process holds the
+        full state.
+
+    A `state_<step>` directory counts once its metadata file is written,
+    the last act of a save.
+
+    The staging is a copy on the leaves' own device (a DTensor's local
+    shard, re-wrapped with its placements), and the writes coordinate over
+    a gloo group of their own, made here (so every process constructs the
+    manager): the background write's collectives then never interleave
+    with the training's on the default group."""
+
+    def __init__(self, directory: str, async_save: bool = True):
+        import torch.distributed as dist
+        self.dir = os.path.abspath(directory)
+        os.makedirs(self.dir, exist_ok=True)
+        self.async_save = async_save
+        self._pending = None
+        self._group = (dist.new_group(backend="gloo") if dist.is_initialized() else None)
+
+    def _path(self, step: int) -> str:
+        return os.path.join(self.dir, f"state_{step:08d}")
+
+    def save_state(self, step: int, state_tree: Any) -> str:
+        import torch.distributed.checkpoint as dcp
+        self.wait_until_finished()
+        path = self._path(step)
+        if self.async_save:
+            self._pending = dcp.async_save(state_tree, checkpoint_id=path,
+                                           process_group=self._group,
+                                           async_stager=_DeviceCopyStager())
+        else:
+            dcp.save(state_tree, checkpoint_id=path, process_group=self._group)
+        return path
+
+    def wait_until_finished(self) -> None:
+        if self._pending is not None:
+            self._pending.result()
+            self._pending = None
+
+    def state_steps(self) -> List[int]:
+        out = []
+        for f in os.listdir(self.dir):
+            m = re.match(r"state_(\d+)$", f)
+            if m and os.path.exists(os.path.join(self.dir, f, ".metadata")):
+                out.append(int(m.group(1)))
+        return sorted(out)
+
+    def load_state(self, target: Any, step: Optional[int] = None) -> Any:
+        """Restore into `target` in place and return it."""
+        import torch.distributed.checkpoint as dcp
+        self.wait_until_finished()
+        steps = self.state_steps()
+        if not steps:
+            raise FileNotFoundError(f"No sharded checkpoints in {self.dir}")
+        step = steps[-1] if step is None else step
+        dcp.load(target, checkpoint_id=self._path(step), process_group=self._group)
+        return target
+
+    def latest_state_step(self) -> Optional[int]:
+        steps = self.state_steps()
+        return steps[-1] if steps else None
+
+    def close(self) -> None:
+        self.wait_until_finished()
+
+
+def _stage_copy(tree: Any) -> Any:
+    """A copy of a state tree on its leaves' devices, DTensors re-wrapped."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(tree, dict):
+        return {k: _stage_copy(v) for k, v in tree.items()}
+    if isinstance(tree, DTensor):
+        return DTensor.from_local(tree.to_local().clone(), tree.device_mesh, tree.placements,
+                                  run_check=False, shape=tree.shape, stride=tree.stride())
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().clone()
+    return tree
+
+
+class _DeviceCopyStager:
+    """dcp.async_save's stager (its AsyncStager protocol): `_stage_copy`,
+    finished when `stage` returns."""
+
+    should_synchronize_after_execute = False
+
+    def stage(self, state_dict):
+        return _stage_copy(state_dict)
+
+    def synchronize_staging(self) -> None:
+        pass
+
+    def close(self) -> None:
+        pass

@@ -5,9 +5,9 @@ Own copy of the dataclasses the serving, training and evaluation paths read
 (counterpart: tal_asrd_tpu/core/config.py). Field names and defaults are the
 same, so a test can build both packages' configs from one set of keyword
 arguments. Fields that only select a TPU lowering (`use_pallas`,
-`spectrum_impl`, `conv_impl`) have no meaning here and are left out, and
-so is `MeshConfig` (parallelism is not ported yet). `to_json` writes a
-config as the reference's does.
+`spectrum_impl`, `conv_impl`) have no meaning here and are left out.
+`MeshConfig` is the ('data', 'model') mesh's shape (parallel/mesh.py).
+`to_json` writes a config as the reference's does.
 """
 from __future__ import annotations
 
@@ -215,6 +215,15 @@ class DecodeConfig:
                 raise NotImplementedError(
                     f"DecodeConfig.{name}={getattr(self, name)!r}: only the default "
                     f"{default!r} is supported until ROADMAP {item} is ported")
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Process mesh shape (parallel/mesh.py `make_mesh`). The reference's
+    only parallelism is data parallel; `model` adds tensor parallelism."""
+
+    data: int = -1   # -1: every process not on the model axis is on the data axis
+    model: int = 1
 
 
 # Fields read only by paths not ported yet, and the ROADMAP item of each path.

@@ -100,12 +100,14 @@ def load_into(model: nn.Module, tree: Dict[str, Any]) -> nn.Module:
     return model
 
 
-def params_spec(model: nn.Module) -> Dict[str, Any]:
-    """The model's parameter tree in the reference's names and layouts with
-    a `LeafSpec` (shape, numpy dtype) for each leaf, read from the
-    parameters' metadata: nothing is copied from the device."""
+def params_spec(model) -> Dict[str, Any]:
+    """The model's parameter tree (or a state_dict's) in the reference's
+    names and layouts with a `LeafSpec` (shape, numpy dtype) for each leaf,
+    read from the parameters' metadata: nothing is copied from the
+    device."""
     leaves = []
-    for name, t in model.state_dict().items():
+    sd = model.state_dict() if isinstance(model, nn.Module) else model
+    for name, t in sd.items():
         path, t = unconvert_entry(name, t.detach().to("meta"))
         dtype = BFLOAT16_BITS if t.dtype == torch.bfloat16 else np.dtype(
             str(t.dtype).replace("torch.", ""))
@@ -113,12 +115,16 @@ def params_spec(model: nn.Module) -> Dict[str, Any]:
     return tree_from_leaves(leaves)
 
 
-def load_partial_into(model: nn.Module, tree: Dict[str, Any]) -> None:
+def load_partial_into(model: nn.Module, tree: Dict[str, Any], localize=None) -> None:
     """Fill `model` from a tree that `load_params_partial` returned on its
     `params_spec`: every array leaf is converted and copied in; a `LeafSpec`
-    leaf (a parameter the load kept) leaves the parameter as it is."""
+    leaf (a parameter the load kept) leaves the parameter as it is.
+    `localize` maps the converted state_dict to the model's own (a
+    tensor-parallel model's shards)."""
     loaded = params_to_state_dict(tree_from_leaves(
         (path, v) for path, v in tree_leaves(tree) if not isinstance(v, LeafSpec)))
+    if localize is not None:
+        loaded = localize(loaded)
     own = model.state_dict()
     unknown = sorted(set(loaded) - set(own))
     if unknown:
@@ -161,6 +167,17 @@ def unconvert_entry(name: str, t: torch.Tensor) -> Tuple[Tuple[str, ...], torch.
             raise ValueError(f"weight {name} has rank {t.dim()}")
         return tuple(path) + ("kernel",), t
     return tuple(path) + (leaf,), t
+
+
+def reference_dim_to_torch(name: str, ndim: int, ref_dim: int) -> int:
+    """The axis of a state_dict entry of rank `ndim` that is axis `ref_dim`
+    of its layout in the reference (`unconvert_entry`'s view)."""
+    path, leaf = _reference_path(name)
+    if leaf != "weight" or path[-1:] == ("embedding",):
+        return ref_dim
+    if ndim == 2 and path[:1] == ("encoder",):      # [out, in] <- [1, in, out]
+        return {1: 1, 2: 0}[ref_dim]
+    return ndim - 1 - ref_dim                       # a transpose or a reversal
 
 
 def state_dict_to_params(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:

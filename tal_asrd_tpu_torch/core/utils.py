@@ -4,8 +4,10 @@ and integer helpers.
 Counterpart of tal_asrd_tpu/core/utils.py. `set_seed` seeds Python's and
 numpy's global generators exactly as the reference does (the data pipeline
 draws from them: `SegmentDataset`'s window jitter and length without
-`det_seed`), and returns a seeded CPU `torch.Generator` where the reference
-returns its root PRNG key; the port draws its initial weights from it.
+`det_seed`) and seeds PyTorch's default generators (dropout; the
+reference draws it from its seeded key), and returns a seeded CPU
+`torch.Generator` where the reference returns its root PRNG key; the port
+draws its initial weights from it.
 `debug_log` prints what the reference's prints for the same values: a
 tensor is moved to the host (as float32 for the census of a float tensor)
 and described under its own dtype; a tree's leaves come in JAX's order
@@ -23,10 +25,12 @@ import torch
 
 
 def set_seed(seed: int) -> torch.Generator:
-    """Seed `random` and `numpy.random`; return a CPU generator seeded with
-    `seed`."""
+    """Seed `random`, `numpy.random` and PyTorch's default generators (the
+    dropout draws: the reference draws them from its seeded key); return a
+    CPU generator seeded with `seed`."""
     random.seed(seed)
     np.random.seed(seed)
+    torch.manual_seed(seed)
     return torch.Generator().manual_seed(seed)
 
 

@@ -22,13 +22,16 @@ an H100 the frontend and the encoder give the same bits at batches 2 and 4
 in bf16; in f32 the encoder parts from batch 4 by up to 4e-4 at batch 2).
 Only the input audio and the mean, a scalar, reach another device.
 
-The parts are dispatched one after another from the host (the frontends
-first, then each part's encoder and decode); overlapping them across cards
-and a device mesh are ROADMAP A13.
+The frontends run first, from the calling thread (the mean is their one
+meeting point); then each distinct device runs its parts' encoder and
+decode on a host thread of its own, so that no card waits for another's
+host loop. Parts that share a device run in order on its thread; with one
+distinct device everything runs on the calling thread.
 """
 from __future__ import annotations
 
 import copy
+import threading
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
@@ -90,12 +93,54 @@ def sharded_features(models: Sequence, devices: Sequence[str], audio, audio_lens
             for i, (mel, model, dev) in enumerate(zip(mels, models, devices))]
 
 
+def _device_key(name: str) -> torch.device:
+    dev = torch.device(name)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def per_device(devices: Sequence[str], work: Callable[[int], Any]) -> List[Any]:
+    """work(i) for every part i under inference mode, the parts of one
+    device in order on one host thread per distinct device; the results in
+    part order."""
+    groups: Dict[torch.device, List[int]] = {}
+    for i, name in enumerate(devices):
+        groups.setdefault(_device_key(name), []).append(i)
+    results: List[Any] = [None] * len(devices)
+    errors: List[BaseException] = []
+
+    def run(parts: List[int]) -> None:
+        try:
+            with torch.inference_mode():
+                for i in parts:
+                    results[i] = work(i)
+        except BaseException as e:  # noqa: BLE001 - raised on the calling thread
+            errors.append(e)
+
+    if len(groups) == 1:
+        run(list(range(len(devices))))
+    else:
+        threads = [threading.Thread(target=run, args=(parts,)) for parts in groups.values()]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    if errors:
+        raise errors[0]
+    return results
+
+
+def _batch_max(audio_lens) -> Optional[int]:
+    return None if audio_lens is None else int(torch.as_tensor(audio_lens).max())
+
+
 def encode_sharded(models: Sequence, devices: Sequence[str], audio, audio_lens
                    ) -> List[Dict[str, Any]]:
     """`sharded_features`, then each part's encoder on its device with the
     whole batch's longest audio. Returns the parts' encoder outputs, in
     order."""
-    batch_max = None if audio_lens is None else int(torch.as_tensor(audio_lens).max())
+    batch_max = _batch_max(audio_lens)
     return [model.encode_features(feats, l_i, audio.shape[-1], batch_max_len=batch_max)
             for (feats, l_i), model in zip(sharded_features(models, devices, audio, audio_lens),
                                            models)]
@@ -127,9 +172,17 @@ def make_sharded_decode(model, spec: BeamSearchSpec,
         with torch.inference_mode():
             prime = torch.as_tensor(prime).to(torch.long)
             part = prime.shape[0] // len(devs)
-            encs = encode_sharded(models, devs, audio, audio_lens)
-            outs = [beam_search(m, enc, prime[i * part:(i + 1) * part].to(dev), spec)
-                    for i, (m, dev, enc) in enumerate(zip(models, devs, encs))]
+            feats = sharded_features(models, devs, audio, audio_lens)
+        batch_max = _batch_max(audio_lens)
+
+        def decode(i: int) -> Dict[str, torch.Tensor]:
+            enc = models[i].encode_features(feats[i][0], feats[i][1], audio.shape[-1],
+                                            batch_max_len=batch_max)
+            return beam_search(models[i], enc, prime[i * part:(i + 1) * part].to(devs[i]),
+                               spec)
+
+        outs = per_device(devs, decode)
+        with torch.inference_mode():
             return _gather(outs, devs[0])
 
     return run
@@ -146,14 +199,20 @@ def make_sharded_unaligned(model, spec: UnalignedSpec,
 
     def run(audio, audio_lens) -> Dict[str, Any]:
         with torch.inference_mode():
-            encs = encode_sharded(models, devs, audio, audio_lens)
-            outs = []
-            for m, enc in zip(models, encs):
-                mask = enc.get("encoder_padding_mask")
-                x = enc["encoder_out"]
-                ns = ((~mask).sum(-1) if mask is not None
-                      else torch.full((x.shape[0],), x.shape[1]))
-                outs.append(unaligned_decode_batched(m, enc, ns, spec))
+            feats = sharded_features(models, devs, audio, audio_lens)
+        batch_max = _batch_max(audio_lens)
+
+        def decode(i: int) -> Dict[str, Any]:
+            enc = models[i].encode_features(feats[i][0], feats[i][1], audio.shape[-1],
+                                            batch_max_len=batch_max)
+            mask = enc.get("encoder_padding_mask")
+            x = enc["encoder_out"]
+            ns = ((~mask).sum(-1) if mask is not None
+                  else torch.full((x.shape[0],), x.shape[1]))
+            return unaligned_decode_batched(models[i], enc, ns, spec)
+
+        outs = per_device(devs, decode)
+        with torch.inference_mode():
             return _gather(outs, devs[0])
 
     return run

@@ -25,7 +25,12 @@ projection (`speaker_head_1`, `speaker_head_2`) to per-token speaker logits.
     applies SpecAugment (ops/specaug.py, kernel K4 on the card) to the f32
     log-mel before the cast;
   * the speaker head's modules are registered after the main decoder, so a
-    model without the head draws the same initial weights either way.
+    model without the head draws the same initial weights either way;
+  * in data-parallel training (`data_group` set by train/system.py) the
+    batch is this process's rows of a global batch: the frontend's mean and
+    `pad_mask_mode="batch_max"`'s longest audio are the global batch's,
+    reduced over the group; on a tensor-parallel model (`vocab_shard` set by
+    parallel/tensor.py) the embedding holds a block of vocabulary rows.
 """
 from __future__ import annotations
 
@@ -46,7 +51,7 @@ from tal_asrd_tpu_torch.models.decoder import (
 )
 from tal_asrd_tpu_torch.models.layers import Linear, lecun_normal_
 from tal_asrd_tpu_torch.models.tds import TDS
-from tal_asrd_tpu_torch.ops.logmel import batch_mean, log_mel_spectrogram
+from tal_asrd_tpu_torch.ops.logmel import batch_mean, batch_sum_count, log_mel_spectrogram
 from tal_asrd_tpu_torch.ops.specaug import spec_augment_seeded
 
 
@@ -75,6 +80,9 @@ def encoder_padding_mask(audio_lens: torch.Tensor, max_audio_len: int,
 
 
 class ASRModel(nn.Module):
+    data_group = None      # data-parallel training: the group of the batch's rows
+    vocab_shard = None     # tensor parallel: (group, first row, rows) of the embedding
+
     def __init__(self, cfg: ModelConfig,
                  frontend: FrontendConfig = FrontendConfig(),
                  specaug: SpecAugmentConfig = SpecAugmentConfig(),
@@ -169,7 +177,13 @@ class ASRModel(nn.Module):
         log-mel before the cast."""
         mel = self.log_mel(audio)
         if self.frontend.mean_subtract:
-            mel = mel - batch_mean(mel, audio_lens, self.frontend)
+            if self.data_group is None:
+                mel = mel - batch_mean(mel, audio_lens, self.frontend)
+            else:
+                total, count = batch_sum_count(mel, audio_lens, self.frontend)
+                both = torch.stack([total.double(), count.double()])
+                torch.distributed.all_reduce(both, group=self.data_group)
+                mel = mel - (both[0] / both[1].clamp(min=mel.shape[-1])).to(mel.dtype)
         if train:
             if specaug_seeds is None:
                 raise ValueError("train=True needs the SpecAugment seeds")
@@ -202,7 +216,15 @@ class ASRModel(nn.Module):
                specaug_seeds: Optional[torch.Tensor] = None) -> Dict[str, Any]:
         feats = self.extract_features(audio, audio_lens=audio_lens, train=train,
                                       specaug_seeds=specaug_seeds)
-        return self.encode_features(feats, audio_lens, audio.shape[-1])
+        batch_max = None
+        if (self.data_group is not None and audio_lens is not None
+                and self.cfg.pad_mask_mode == "batch_max"):
+            top = audio_lens.max().double().reshape(1)
+            torch.distributed.all_reduce(top, op=torch.distributed.ReduceOp.MAX,
+                                         group=self.data_group)
+            batch_max = int(top)
+        return self.encode_features(feats, audio_lens, audio.shape[-1],
+                                    batch_max_len=batch_max)
 
     # ------------------------------------------------------------------
     # Decoder side
@@ -219,7 +241,16 @@ class ASRModel(nn.Module):
         return mem + self.mem_pos_alpha.to(mem.dtype) * pe[None]
 
     def embed_tokens(self, y: torch.Tensor) -> torch.Tensor:
-        e = self.embedding(y).to(self.compute_dtype)
+        if self.vocab_shard is None:
+            e = self.embedding(y)
+        else:   # this process's rows, zeros for the others', summed over the axis
+            from tal_asrd_tpu_torch.parallel.tensor import reduce_from_model
+            group, first, rows = self.vocab_shard
+            local = y - first
+            held = (local >= 0) & (local < rows)
+            e = self.embedding(local.clamp(0, rows - 1)) * held[..., None]
+            e = reduce_from_model(e, group)
+        e = e.to(self.compute_dtype)
         if self.cfg.embed_size:
             e = e @ self.embedding_proj.to(e.dtype)
         return e
@@ -234,7 +265,12 @@ class ASRModel(nn.Module):
         """Tied factorized head: h -> embed space -> vocab."""
         if self.cfg.embed_size:
             h = h @ self.embedding_proj.to(h.dtype).T
-        return h @ self.embedding.weight.to(h.dtype).T
+        if self.vocab_shard is None:
+            return h @ self.embedding.weight.to(h.dtype).T
+        from tal_asrd_tpu_torch.parallel.tensor import copy_to_model, gather_from_model
+        group = self.vocab_shard[0]
+        return gather_from_model(copy_to_model(h, group) @ self.embedding.weight.to(h.dtype).T,
+                                 group)
 
     def decode(
         self,

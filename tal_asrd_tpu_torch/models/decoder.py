@@ -79,13 +79,17 @@ def _attend(
     bias: Optional[torch.Tensor],  # additive [B or 1, 1 or H, Tq, Tk] in f32
     dropout: float = 0.0,
     training: bool = False,
+    head_group=None,
+    n_head: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Scaled dot-product attention. Returns (out [B, Tq, H, Dh] in q's
     dtype, mean-over-heads weights [B, Tq, Tk] in float32). Logits are
     accumulated and soft-maxed in f32; the probabilities are cast to the
     value dtype for the weighted sum, which accumulates in f32. In training
     the probabilities are dropped after the head mean is taken, so the
-    returned weights never carry dropout."""
+    returned weights never carry dropout. With `head_group` the heads are
+    this process's share of `n_head` and the mean is taken over all of
+    them (parallel/tensor.py)."""
     dtype = q.dtype
     dh = q.shape[-1]
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
@@ -93,7 +97,11 @@ def _attend(
     if bias is not None:
         logits = logits + bias
     weights = torch.softmax(logits, dim=-1)  # f32
-    mean_weights = weights.mean(dim=1)       # [B, Tq, Tk]
+    if head_group is None:
+        mean_weights = weights.mean(dim=1)   # [B, Tq, Tk]
+    else:
+        from tal_asrd_tpu_torch.parallel.tensor import reduce_from_model
+        mean_weights = reduce_from_model(weights.sum(dim=1), head_group) / n_head
     if training and dropout > 0.0:
         weights = F.dropout(weights, dropout, training=True)
     out = torch.einsum("bhqk,bkhd->bqhd", weights.to(dtype).float(), v.float())
@@ -101,7 +109,11 @@ def _attend(
 
 
 class SelfAttention(nn.Module):
-    """Fused-QKV self-attention with an optional fixed-size KV cache."""
+    """Fused-QKV self-attention with an optional fixed-size KV cache. On a
+    tensor-parallel model (`head_group` set) the projections hold this
+    process's heads."""
+
+    head_group = None
 
     def __init__(self, d_model: int, n_head: int, dropout: float = 0.0):
         super().__init__()
@@ -121,11 +133,12 @@ class SelfAttention(nn.Module):
         key_padding_mask: Optional[torch.Tensor] = None,  # [B, T] True = ignore
     ):
         b, t, _ = x.shape
-        h, dh = self.n_head, self.d_model // self.n_head
-        q, k, v = self.qkv(x).split(self.d_model, dim=-1)
-        q = q.reshape(b, t, h, dh)
-        k = k.reshape(b, t, h, dh)
-        v = v.reshape(b, t, h, dh)
+        dh = self.d_model // self.n_head
+        q, k, v = self.qkv(x).chunk(3, dim=-1)
+        q = q.reshape(b, t, -1, dh)
+        k = k.reshape(b, t, -1, dh)
+        v = v.reshape(b, t, -1, dh)
+        heads = dict(head_group=self.head_group, n_head=self.n_head)
 
         new_cache = None
         if cache is not None:
@@ -139,7 +152,7 @@ class SelfAttention(nn.Module):
             qpos = cache_index + torch.arange(t, device=x.device)
             bias = torch.where(pos[None, :] <= qpos[:, None], 0.0, NEG_INF)
             out, w = _attend(q, ck.to(q.dtype), cv.to(q.dtype), bias[None, None],
-                             self.dropout, self.training)
+                             self.dropout, self.training, **heads)
         else:
             bias = None
             if causal:
@@ -148,13 +161,17 @@ class SelfAttention(nn.Module):
             if key_padding_mask is not None:
                 kp = torch.where(key_padding_mask[:, None, None, :], NEG_INF, 0.0)
                 bias = kp if bias is None else bias + kp
-            out, w = _attend(q, k, v, bias, self.dropout, self.training)
+            out, w = _attend(q, k, v, bias, self.dropout, self.training, **heads)
 
-        return self.out_proj(out.reshape(b, t, self.d_model)), w, new_cache
+        return self.out_proj(out.reshape(b, t, -1)), w, new_cache
 
 
 class CrossAttention(nn.Module):
-    """Encoder-decoder attention; memory K/V precomputable once per window."""
+    """Encoder-decoder attention; memory K/V precomputable once per window.
+    On a tensor-parallel model (`head_group` set) the projections hold this
+    process's heads."""
+
+    head_group = None
 
     def __init__(self, d_model: int, n_head: int, dropout: float = 0.0):
         super().__init__()
@@ -167,9 +184,9 @@ class CrossAttention(nn.Module):
 
     def precompute_kv(self, memory: torch.Tensor) -> Dict[str, torch.Tensor]:
         b, s, _ = memory.shape
-        h, dh = self.n_head, self.d_model // self.n_head
-        k, v = self.kv(memory).split(self.d_model, dim=-1)
-        return {"k": k.reshape(b, s, h, dh), "v": v.reshape(b, s, h, dh)}
+        dh = self.d_model // self.n_head
+        k, v = self.kv(memory).chunk(2, dim=-1)
+        return {"k": k.reshape(b, s, -1, dh), "v": v.reshape(b, s, -1, dh)}
 
     def forward(
         self,
@@ -180,16 +197,16 @@ class CrossAttention(nn.Module):
         mem_kv: Optional[Dict[str, torch.Tensor]] = None,
     ):
         b, t, _ = x.shape
-        h, dh = self.n_head, self.d_model // self.n_head
-        q = self.q(x).reshape(b, t, h, dh)
+        dh = self.d_model // self.n_head
+        q = self.q(x).reshape(b, t, -1, dh)
         if mem_kv is None:
             mem_kv = self.precompute_kv(memory)
         bias = None
         if key_padding_mask is not None:
             bias = torch.where(key_padding_mask[:, None, None, :], NEG_INF, 0.0)
         out, w = _attend(q, mem_kv["k"], mem_kv["v"], bias, self.dropout,
-                         self.training)
-        return self.out_proj(out.reshape(b, t, self.d_model)), w
+                         self.training, head_group=self.head_group, n_head=self.n_head)
+        return self.out_proj(out.reshape(b, t, -1)), w
 
 
 class RZDecoderLayer(nn.Module):

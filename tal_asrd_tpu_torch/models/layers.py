@@ -12,6 +12,11 @@ the f32 parameters through the cast.
 `variance_scaling(1, "fan_in", "truncated_normal")`, a standard normal cut
 at +-2 and scaled by 1 / (0.87962566 sqrt(fan_in)), so the std is
 1 / sqrt(fan_in) and no value lies beyond 2.2737 / sqrt(fan_in).
+
+A `Linear` that `parallel.tensor.parallelize` marks holds a shard of its
+weight on the mesh's model axis: column-parallel ("col", output features)
+or row-parallel ("row", input features; the partial products are summed
+over the axis before the bias).
 """
 from __future__ import annotations
 
@@ -42,6 +47,15 @@ class Linear(nn.Linear):
     """`nn.Linear` (same parameters, same state_dict keys) whose weight and
     bias follow the input's dtype."""
 
+    tp_mode: Optional[str] = None     # "col" | "row" on a tensor-parallel layer
+    tp_group = None
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
-        return F.linear(x, self.weight.to(x.dtype), bias)
+        if self.tp_mode is None:
+            return F.linear(x, self.weight.to(x.dtype), bias)
+        from tal_asrd_tpu_torch.parallel.tensor import copy_to_model, reduce_from_model
+        if self.tp_mode == "col":
+            return F.linear(copy_to_model(x, self.tp_group), self.weight.to(x.dtype), bias)
+        y = reduce_from_model(F.linear(x, self.weight.to(x.dtype)), self.tp_group)
+        return y if bias is None else y + bias

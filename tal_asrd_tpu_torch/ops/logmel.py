@@ -113,9 +113,16 @@ def batch_mean(mel: torch.Tensor, audio_lens: Optional[torch.Tensor] = None,
     frame."""
     if audio_lens is None:
         return mel.mean()
+    total, count = batch_sum_count(mel, audio_lens, cfg)
+    return total / count.clamp(min=mel.shape[-1])     # at least one frame
+
+
+def batch_sum_count(mel: torch.Tensor, audio_lens: torch.Tensor,
+                    cfg: FrontendConfig = FrontendConfig()):
+    """(sum, count) of a log-mel's values over the real frames: `batch_mean`
+    is their ratio; a data-parallel batch adds both up over its processes."""
     # Real frames of item i: centers at k*hop for k <= len_i // hop
     # (center=True reflect pad keeps frame k anchored at sample k*hop).
     frame_idx = torch.arange(mel.shape[1], device=mel.device)[None, :]
     real = frame_idx <= (audio_lens.to(mel.device)[:, None] // cfg.hop_length)
-    denom = real.sum().clamp(min=1) * mel.shape[-1]
-    return (mel * real[..., None]).sum(dtype=torch.float32) / denom
+    return (mel * real[..., None]).sum(dtype=torch.float32), real.sum() * mel.shape[-1]

@@ -13,6 +13,13 @@ validation; as in the reference, an exception there is printed and
 training goes on (the hook's records in the metrics file show whether it
 ran).
 
+With a mesh (the system's, parallel/mesh.py) every process runs the loop
+on the same global batches; only process 0 logs and writes the msgpack
+checkpoints, which hold the gathered full trees (the files of a
+one-process run). The validation loss is process 0's, broadcast, so early
+stopping decides alike everywhere, and `resume` restores on every process
+the state process 0 finds.
+
 A logged step's `step_time_s` is taken after its metrics are read back, so
 it includes the device's work. Each epoch's record also carries `train_s`
 (the wall time of its training batches, loader included), `loader_wait_s`
@@ -26,6 +33,8 @@ from dataclasses import dataclass
 from typing import Callable, Iterable, Optional
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from tal_asrd_tpu_torch.core.checkpoint import CheckpointManager
 from tal_asrd_tpu_torch.utils.logging import MetricsLogger
@@ -62,26 +71,53 @@ def _timed(iterable: Iterable, waits: list):
         yield item
 
 
+class _Quiet:
+    """The logger of a process other than 0: records nothing."""
+
+    def log_metrics(self, *args, **kwargs) -> None:
+        pass
+
+    log_generation = log_metrics
+
+
 class Trainer:
     def __init__(self, system, cfg: TrainerConfig,
                  logger: Optional[MetricsLogger] = None,
-                 generation_hook: Optional[Callable] = None):
+                 generation_hook: Optional[Callable] = None, mesh=None):
         if cfg.state_ckpt not in ("last", "every"):
             raise ValueError(f"state_ckpt must be 'last' or 'every', got {cfg.state_ckpt!r}")
         self.system = system
         self.cfg = cfg
-        self.logger = logger or MetricsLogger(name="train")
+        self.mesh = system.mesh if mesh is None else mesh
+        self.lead = self.mesh is None or dist.get_rank() == 0
+        self.logger = (logger or MetricsLogger(name="train")) if self.lead else _Quiet()
         self.generation_hook = generation_hook
         self.ckpt = CheckpointManager(cfg.checkpoint_dir)
+
+    def _say(self, text: str) -> None:
+        if self.lead:
+            print(text)
+
+    def _from_lead(self, value: float) -> float:
+        """Process 0's value on every process of a mesh."""
+        if self.mesh is None:
+            return value
+        t = torch.tensor([value], dtype=torch.float64, device=self.system.device)
+        dist.broadcast(t, 0)
+        return float(t)
 
     def fit(self, train_loader: Iterable, val_loader: Iterable,
             resume: bool = False) -> None:
         """Train the system in place until max_epochs, max_steps or early
         stopping."""
         cfg, system = self.cfg, self.system
-        if resume and self.ckpt.latest_state_step() is not None:
-            system.load_state_tree(self.ckpt.load_state())
-            print(f"[trainer] resumed the full state at step {system.step}")
+        latest = self.ckpt.latest_state_step() if resume else None
+        if resume and self.mesh is not None:
+            latest = int(self._from_lead(-1 if latest is None else latest))
+            latest = None if latest < 0 else latest
+        if latest is not None:
+            system.load_state_tree(self.ckpt.load_state(step=latest))
+            self._say(f"[trainer] resumed the full state at step {system.step}")
 
         best_val = float("inf")
         bad_epochs = 0
@@ -123,7 +159,7 @@ class Trainer:
                 try:
                     self.generation_hook(system.step, self.logger)
                 except Exception as e:  # the spot check never stops training
-                    print(f"[trainer] generation hook failed: {e!r}")
+                    self._say(f"[trainer] generation hook failed: {e!r}")
             # the early-stop decision comes first, so a stopping epoch is
             # checkpointed as the last one (state included)
             if cfg.overfit_pct == 0:
@@ -133,17 +169,20 @@ class Trainer:
                 else:
                     bad_epochs += 1
                     if bad_epochs >= cfg.early_stop_patience:
-                        print(f"[trainer] early stop at epoch {epoch}")
+                        self._say(f"[trainer] early stop at epoch {epoch}")
                         stop = True
             last_epoch = stop or cfg.quick_test or epoch == cfg.max_epochs - 1
             if (epoch + 1) % cfg.ckpt_every == 0 or last_epoch:
                 with_state = cfg.state_ckpt == "every" or last_epoch
                 tree = system.state_tree() if with_state else None
-                self.ckpt.save(system.step,
-                               tree["params"] if with_state else system.params_tree(),
-                               extra={"epoch": epoch, "val_loss": val_loss})
-                if with_state:
-                    self.ckpt.save_state(system.step, tree)
+                params = tree["params"] if with_state else system.params_tree()
+                if self.lead:
+                    self.ckpt.save(system.step, params,
+                                   extra={"epoch": epoch, "val_loss": val_loss})
+                    if with_state:
+                        self.ckpt.save_state(system.step, tree)
+                if self.mesh is not None:
+                    dist.barrier()      # the files exist for every process
             self.logger.log_metrics(
                 {"epoch_time_s": time.time() - t_epoch, "val_loss": val_loss,
                  "train_s": train_s, "loader_wait_s": waits[0], "audio_s": audio_s},
@@ -160,6 +199,6 @@ class Trainer:
             losses.append(float(self.system.eval_step(batch)["loss"]))
             if self.cfg.quick_test:
                 break
-        val = float(np.mean(losses)) if losses else float("nan")
+        val = self._from_lead(float(np.mean(losses)) if losses else float("nan"))
         self.logger.log_metrics({"val_loss_step": val}, step=step)
         return val

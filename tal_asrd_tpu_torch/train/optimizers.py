@@ -50,6 +50,15 @@ An unnamed parameter is factored in its own layout.
 layout of JAX's state NamedTuple, under the reference's parameter names:
 LAMB and RAdam {"count", "mu", "nu"}, Adafactor {"count", "moments"},
 Lookahead {"inner", "slow", "counter"}.
+
+On a tensor-parallel model (`shards`, the model's
+`parallel.tensor.ModelShards`) a sharded parameter and its moments hold
+this process's shard: LAMB's norms, Adafactor's factored means over the
+sharded axis and its RMS values are summed over the model axis, and
+`reference_state()` gathers whole leaves (a collective: every process of
+the axis calls it). LAMB takes its norms in a first pass over the
+parameters and steps them in a second, so that one all-reduce carries
+every sharded parameter's norms.
 """
 from __future__ import annotations
 
@@ -60,6 +69,7 @@ import torch
 
 from tal_asrd_tpu_torch.core.checkpoint import to_numpy, tree_from_leaves
 from tal_asrd_tpu_torch.core.convert import state_dict_to_params, unconvert_entry
+from tal_asrd_tpu_torch.parallel.tensor import all_reduce_
 
 LearningRate = Union[float, Callable[[int], float]]
 f32 = np.float32
@@ -88,6 +98,24 @@ class _ReferenceOptimizer(torch.optim.Optimizer):
     """Each parameter's state holds `step`, the updates made (the same for
     every parameter: all are stepped each time), and for LAMB and RAdam
     `exp_avg` / `exp_avg_sq` (m, v)."""
+
+    shards = None       # the model's ModelShards on a tensor-parallel model
+
+    def _shard_of(self, name: Optional[str]):
+        """The ModelShards when parameter `name` is sharded, else None."""
+        if self.shards is not None and name is not None and self.shards.sharded(name):
+            return self.shards
+        return None
+
+    def set_shards(self, shards) -> None:
+        """Step the shards of a tensor-parallel model (its ModelShards)."""
+        self.shards = shards
+
+    def _full(self, name: str, t: torch.Tensor, dim: Optional[int] = None) -> torch.Tensor:
+        """`t` (a state tensor of parameter `name`, sharded on `dim`, by
+        default the parameter's axis) gathered whole."""
+        sh = self._shard_of(name)
+        return t if sh is None else sh.gather(name, t, dim)
 
     def update_count(self) -> int:
         for state in self.state.values():
@@ -124,7 +152,7 @@ class _ReferenceOptimizer(torch.optim.Optimizer):
 
     def _moment_tree(self, key: str) -> Dict:
         return state_dict_to_params({
-            n: self.state[p][key] if p in self.state else torch.zeros_like(p)
+            n: self._full(n, self.state[p][key] if p in self.state else torch.zeros_like(p))
             for _, n, p in self._named()})
 
     def reference_state(self) -> Dict:
@@ -156,7 +184,17 @@ class LAMB(_ReferenceOptimizer):
             wd = group["weight_decay"]
             lr = group["lr"]
             lr = lr(count) if callable(lr) else lr
-            for p in group["params"]:
+            params = group["params"]
+            names = group.get("param_names") or [None] * len(params)
+
+            def adam_step(p):
+                m, v = self.state[p]["exp_avg"], self.state[p]["exp_avg_sq"]
+                out = m / (v.sqrt() + eps)
+                return out + wd * p if wd != 0.0 else out
+
+            # pass 1: the moments, and each leaf's squared norms
+            sq = []
+            for p in params:
                 state = self.state[p]
                 if not state:
                     state["step"] = 0
@@ -166,20 +204,27 @@ class LAMB(_ReferenceOptimizer):
                 m, v = state["exp_avg"], state["exp_avg_sq"]
                 m.copy_(b1 * m + (1.0 - b1) * g)
                 v.copy_(b2 * v + (1.0 - b2) * (g * g))
-                adam_step = m / (v.sqrt() + eps)
-                if wd != 0.0:
-                    adam_step = adam_step + wd * p
+                if not group["always_adam"]:
+                    sq.append((p.float().pow(2).sum(), adam_step(p).float().pow(2).sum()))
+            cut = [self._shard_of(n) is not None for n in names]
+            if sq and any(cut):     # the sharded leaves' norms summed over the model axis
+                both = torch.stack([torch.stack(pair) for pair, c in zip(sq, cut) if c])
+                all_reduce_(both, self.shards.group)
+                parts = iter(both)
+                sq = [tuple(next(parts)) if c else pair for pair, c in zip(sq, cut)]
+            # pass 2: the steps
+            for i, p in enumerate(params):
+                step = adam_step(p)
                 if group["always_adam"]:
                     scale = torch.tensor(-lr, dtype=torch.float32, device=p.device)
                 else:
-                    w_norm = p.float().pow(2).sum().sqrt().clamp(
-                        0.0, group["clamp_weight_norm"])
-                    a_norm = adam_step.float().pow(2).sum().sqrt()
+                    w_norm = sq[i][0].sqrt().clamp(0.0, group["clamp_weight_norm"])
+                    a_norm = sq[i][1].sqrt()
                     trust = torch.where((w_norm == 0.0) | (a_norm == 0.0),
                                         torch.ones_like(w_norm), w_norm / a_norm)
                     scale = -lr * trust
-                p.add_((scale * adam_step).to(p.dtype))
-                state["step"] += 1
+                p.add_((scale * step).to(p.dtype))
+                self.state[p]["step"] += 1
         return loss
 
 
@@ -273,8 +318,21 @@ class Adafactor(_ReferenceOptimizer):
         return beta2t, rel_step
 
     @staticmethod
-    def _rms(x: torch.Tensor) -> torch.Tensor:
-        return x.float().pow(2).mean().sqrt()
+    def _rms(x: torch.Tensor, sh=None) -> torch.Tensor:
+        """RMS over the whole leaf (its shards summed over the model axis)."""
+        if sh is None:
+            return x.float().pow(2).mean().sqrt()
+        total = all_reduce_(x.float().pow(2).sum(), sh.group)
+        return (total / (x.numel() * sh.size)).sqrt()
+
+    @staticmethod
+    def _mean(x: torch.Tensor, dim: int, sh=None, keepdim: bool = False) -> torch.Tensor:
+        """Mean along `dim`; `sh` when that axis is the sharded one (equal
+        shards: the mean of the processes' means)."""
+        m = x.mean(dim=dim, keepdim=keepdim)
+        if sh is None:
+            return m
+        return all_reduce_(m, sh.group) / sh.size
 
     @staticmethod
     def _layout(name: Optional[str], t: torch.Tensor) -> torch.Tensor:
@@ -295,6 +353,9 @@ class Adafactor(_ReferenceOptimizer):
             names = group.get("param_names") or [None] * len(group["params"])
             for name, param in zip(names, group["params"]):
                 p = self._layout(name, param)
+                sh = self._shard_of(name)
+                a = None if sh is None else sh.plans[name].ref_dim
+                n = p.dim()
                 state = self.state[param]
                 if not state:
                     state["step"] = 0
@@ -310,20 +371,21 @@ class Adafactor(_ReferenceOptimizer):
                 p32 = p.float()
                 lr = rel_step
                 if group["scale_parameter"]:
-                    lr = torch.clamp_min(self._rms(p32), eps1) * float(rel_step)
+                    lr = torch.clamp_min(self._rms(p32, sh), eps1) * float(rel_step)
                 sq = g * g + eps0
                 if p.dim() >= 2:
                     vr, vc = state["vr"], state["vc"]
-                    vr.copy_(b_old * vr + b_new * sq.mean(dim=-1))
-                    vc.copy_(b_old * vc + b_new * sq.mean(dim=-2))
-                    r = torch.rsqrt(vr / vr.mean(dim=-1, keepdim=True))[..., None]
+                    vr.copy_(b_old * vr + b_new * self._mean(sq, -1, sh if a == n - 1 else None))
+                    vc.copy_(b_old * vc + b_new * self._mean(sq, -2, sh if a == n - 2 else None))
+                    r = torch.rsqrt(vr / self._mean(vr, -1, sh if a == n - 2 else None,
+                                                    keepdim=True))[..., None]
                     c = torch.rsqrt(vc)[..., None, :]
                     upd = r * c * g
                 else:
                     v = state["v"]
                     v.copy_(b_old * v + b_new * sq)
                     upd = torch.rsqrt(v) * g
-                upd = upd / torch.clamp_min(self._rms(upd) / group["clip_threshold"], 1.0)
+                upd = upd / torch.clamp_min(self._rms(upd, sh) / group["clip_threshold"], 1.0)
                 upd = upd * (lr if isinstance(lr, torch.Tensor) else float(lr))
                 if beta1 is not None:
                     m = state["exp_avg"]
@@ -350,6 +412,13 @@ class Adafactor(_ReferenceOptimizer):
                     "vc": torch.zeros(p.shape[:-2] + p.shape[-1:])}
                 if group["beta1"] is not None:
                     state["exp_avg"] = torch.zeros(p.shape)
+            sh = self._shard_of(name)
+            if sh is not None:  # each moment's sharded axis, in the reference's layout
+                a, n = sh.plans[name].ref_dim, p.dim()
+                axis = {"vr": None if a == n - 1 else a,
+                        "vc": None if a == n - 2 else min(a, n - 2)}
+                state = {k: t if k not in keys or axis.get(k, a) is None
+                         else self._full(name, t, axis.get(k, a)) for k, t in state.items()}
             leaves += [(path + (keys[k],), to_numpy(t)) for k, t in state.items()
                        if k in keys]
         return {"count": np.asarray(self.update_count(), np.int32),
@@ -377,6 +446,10 @@ class Lookahead(_ReferenceOptimizer):
 
     def update_count(self) -> int:
         return self.inner.update_count()
+
+    def set_shards(self, shards) -> None:
+        super().set_shards(shards)
+        self.inner.set_shards(shards)
 
     def reset_state(self) -> None:
         super().reset_state()
@@ -412,6 +485,6 @@ class Lookahead(_ReferenceOptimizer):
         counter = next((s["counter"] for s in self.state.values()), 0)
         return {"inner": self.inner.reference_state(),
                 "slow": state_dict_to_params({
-                    n: self.state[p]["slow"] if p in self.state else p
+                    n: self._full(n, self.state[p]["slow"] if p in self.state else p)
                     for _, n, p in self._named()}),
                 "counter": np.asarray(counter, np.int32)}

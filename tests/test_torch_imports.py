@@ -220,20 +220,22 @@ def test_the_speaker_head_reference_script_builds_its_tree_with_numpy_alone():
     assert "BAD=\n" in res.stdout + "\n", res.stdout
 
 
-# The JAX package's exports that the port leaves out: parallelism (ROADMAP
-# A13) is not ported yet.
-NOT_YET_PORTED = {"core": {"MeshConfig"}}
+# The JAX package's exports that the port leaves out: none since
+# parallelism (ROADMAP A13) is ported.
+NOT_YET_PORTED = {}
 
 
 def test_the_optimizer_and_utility_modules_are_among_the_checked_ones():
-    """A12.3 and A20: the modules are ported, and every sub-package the JAX
-    package re-exports from (and the top level) exports the JAX names, less
-    NOT_YET_PORTED."""
+    """A12.3, A20 and A13: the modules are ported, and every sub-package the
+    JAX package re-exports from (and the top level) exports the JAX names,
+    less NOT_YET_PORTED."""
     import importlib
     mods = set(_port_modules())
     assert {"tal_asrd_tpu_torch.utils.flops", "tal_asrd_tpu_torch.utils.profiling",
             "tal_asrd_tpu_torch.text.spm_import", "tal_asrd_tpu_torch.text.gpt2"} <= mods
-    for sub in ("", ".core", ".ops", ".text", ".models", ".utils", ".train"):
+    assert {"tal_asrd_tpu_torch.parallel.mesh", "tal_asrd_tpu_torch.parallel.tensor",
+            "tal_asrd_tpu_torch.parallel.launch"} <= mods
+    for sub in ("", ".core", ".ops", ".text", ".models", ".utils", ".train", ".parallel"):
         ref = importlib.import_module("tal_asrd_tpu" + sub)
         mine = importlib.import_module("tal_asrd_tpu_torch" + sub)
         want = [n for n in ref.__all__ if n not in NOT_YET_PORTED.get(sub[1:], set())]
@@ -245,7 +247,8 @@ def test_the_optimizer_and_utility_modules_are_among_the_checked_ones():
         else:
             assert mine.__all__ == want, sub
         assert all(hasattr(mine, n) for n in mine.__all__), sub
-    assert not hasattr(importlib.import_module("tal_asrd_tpu_torch.core"), "MeshConfig")
+    assert hasattr(importlib.import_module("tal_asrd_tpu_torch.core"), "MeshConfig")
+    assert hasattr(importlib.import_module("tal_asrd_tpu_torch.parallel"), "init_distributed")
 
 
 CLUSTERING_MODULES = ["tal_asrd_tpu_torch.eval.engines", "tal_asrd_tpu_torch.eval.clustering",

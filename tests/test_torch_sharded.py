@@ -189,3 +189,35 @@ def test_default_devices_are_the_cuda_devices():
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             default_devices()
+
+
+def test_each_distinct_device_runs_its_parts_on_a_host_thread_of_its_own():
+    """per_device: one thread a distinct device (the parts of a device in
+    order on it), inference mode in each, the results in part order, a
+    part's exception raised; one distinct device runs on the calling
+    thread."""
+    import threading
+
+    from tal_asrd_tpu_torch.decode.sharded import per_device
+    seen = []
+
+    def work(i):
+        seen.append((i, threading.current_thread(), torch.is_inference_mode_enabled()))
+        return i * 10
+
+    assert per_device(["cpu", "cuda:0", "cpu", "cuda:0"], work) == [0, 10, 20, 30]
+    threads = {i: t for i, t, _ in seen}
+    assert threads[0] is threads[2] and threads[1] is threads[3]
+    assert threads[0] is not threads[1]
+    assert threading.current_thread() not in threads.values()
+    assert all(mode for _, _, mode in seen)
+    order = [i for i, _, _ in seen]
+    assert order.index(0) < order.index(2) and order.index(1) < order.index(3)
+    seen.clear()
+    assert per_device(["cpu", "cpu"], work) == [0, 10]
+    assert all(t is threading.current_thread() for _, t, _ in seen)
+
+    def fails(i):
+        raise ValueError(f"part {i}")
+    with pytest.raises(ValueError, match="part"):
+        per_device(["cpu", "cuda:1"], fails)

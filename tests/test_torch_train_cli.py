@@ -7,8 +7,9 @@ patched at run time to f32 compute with dropout 0 and token replacement 0
 (as tests/test_torch_train.py's TINY / TRAIN are), and log every step.
 Per-step and validation losses within 1e-4 relative, every leaf of every
 checkpoint within 1e-4, spot-check texts equal. Also: the restored step
-(the first update after it at schedule(0)), the refused flags, and the
-parser against the reference's."""
+(the first update after it at schedule(0)), the refused flags, the
+learning rate's scaling by the data axis, and the parser against the
+reference's."""
 import json
 import os
 import re
@@ -240,14 +241,20 @@ def test_first_update_after_a_restore_uses_schedule_zero(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--spk-weight", "0.5"], "A12.2"), (["--mesh-data", "2"], "A13"),
-    (["--mesh-model", "2"], "A13")])
+    (["--spk-weight", "0.5"], "A12.2"),
+    (["--mesh-data", "2", "--device", "cpu"], "mesh 2x1 != 1 processes (no process group): "
+                                              "launch a mesh with torchrun"),
+    (["--batch-size", "3", "--grad-acc", "2"], "--batch-size 3 does not split into "
+                                               "--grad-acc 2 micro-batches")])
 def test_flags_outside_the_slice_are_refused(tmp_path, flags, item):
-    """A mesh of more than one device (A13) is refused, naming its item.
-    The speaker head (A12.2) is ported (its parity with the JAX CLI:
-    tests/test_torch_spk_train.py): --spk-weight 0.5 trains the head, here
-    one --quick-test step at TAL_TINY_ARCH on a split of one 20 s episode,
-    the text without speaker tokens and the step's speaker loss logged."""
+    """A mesh of more than one process without a process group is refused,
+    naming torchrun (the mesh path: tests/test_torch_parallel_*.py), and so
+    is a --batch-size that --grad-acc x the data axis does not divide (the
+    JAX CLI fails on it at its first step). The speaker head (A12.2) is
+    ported (its parity with the JAX CLI: tests/test_torch_spk_train.py):
+    --spk-weight 0.5 trains the head, here one --quick-test step at
+    TAL_TINY_ARCH on a split of one 20 s episode, the text without speaker
+    tokens and the step's speaker loss logged."""
     if item != "A12.2":
         argv = ["--train-data", "d", "--valid-data", "d", "--tokenizer", "t", "--model-type",
                 "1x", "--name", "run", "--checkpoint-path", str(tmp_path)] + flags

@@ -102,7 +102,8 @@ def test_debug_log_moves_a_tensor_to_the_host_as_float32(capsys):
 
 
 @pytest.mark.parametrize("name", ["FrontendConfig", "SpecAugmentConfig", "ModelConfig",
-                                  "SDModelConfig", "LMConfig", "TrainConfig", "DecodeConfig"])
+                                  "SDModelConfig", "LMConfig", "TrainConfig", "DecodeConfig",
+                                  "MeshConfig"])
 def test_to_json_equals_jax(name):
     kwargs = {"ModelConfig": dict(model_type="2x", num_speakers=8, vocab_size=300),
               "TrainConfig": dict(batch_size=16, max_steps=8)}.get(name, {})
@@ -111,4 +112,15 @@ def test_to_json_equals_jax(name):
     for k in TPU_ONLY:
         ref.pop(k, None)
     assert mine == json.dumps(ref, indent=2)
-    assert "ModelConfig" in config.__dict__ and not hasattr(config, "MeshConfig")
+    assert "ModelConfig" in config.__dict__ and "MeshConfig" in config.__dict__
+
+
+def test_set_seed_seeds_the_dropout_draws():
+    """set_seed seeds PyTorch's default generator too (the training CLI's
+    dropout), so two runs in fresh processes draw the same masks."""
+    from tal_asrd_tpu_torch.core.utils import set_seed
+    set_seed(7)
+    first = torch.nn.functional.dropout(torch.ones(64), 0.5, training=True)
+    set_seed(7)
+    again = torch.nn.functional.dropout(torch.ones(64), 0.5, training=True)
+    assert torch.equal(first, again) and 0 < int((first == 0).sum()) < 64
