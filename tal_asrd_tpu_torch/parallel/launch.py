@@ -51,7 +51,10 @@ def _child(target, rank, world, rendezvous, device, backend, threads, spec_path,
         from tal_asrd_tpu_torch.parallel.mesh import init_distributed
         dev = init_distributed(device, backend=backend, init_method=f"file://{rendezvous}",
                                rank=rank, world_size=world)
-        results.put((rank, True, target(rank, dev, spec)))
+        # plain pickle copies tensors by value: torch.multiprocessing's queue
+        # would share their storage through a server in this process, gone
+        # once it exits, which a parent that reads late then cannot reach
+        results.put((rank, True, pickle.dumps(target(rank, dev, spec))))
     except BaseException:  # noqa: BLE001 - the parent reports it
         results.put((rank, False, traceback.format_exc()))
     finally:
@@ -105,7 +108,7 @@ class Group:
                                  f"(ranks done: {sorted(got)})")
                     continue
                 if ok:
-                    got[rank] = value
+                    got[rank] = pickle.loads(value)
                 else:
                     error = f"rank {rank} failed:\n{value}"
         finally:

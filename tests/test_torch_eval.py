@@ -249,12 +249,7 @@ def test_cli_refuses_what_is_not_ported(flags, item, tmp_path):
     if item in ("A8", "A14", "A12.2"):
         with open(os.path.join(d, "transcript.pkl"), "wb") as f:
             pickle.dump({"ep0": transcripts["ep0"][:3]}, f)
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        res = main(argv)
-    finally:
-        torch.set_num_threads(n)
+    res = main(argv)
     runner = res["runner"]
     params = list(runner.model.parameters())
     assert all(p.dtype == (torch.bfloat16 if item == "A8" else torch.float32) for p in params)
@@ -273,18 +268,7 @@ def test_cli_refuses_what_is_not_ported(flags, item, tmp_path):
                             for u in hyps)
 
 
-@pytest.fixture
-def one_thread():
-    """One intra-op thread: the tests run in several processes at once
-    (pytest -n), and PyTorch's CPU thread pools in each would oversubscribe
-    the cores many times over."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
-def test_cli_at_full_width_on_the_cpu(tmp_path, record_property, one_thread):
+def test_cli_at_full_width_on_the_cpu(tmp_path, record_property):
     """`python -m tal_asrd_tpu_torch.cli.test --device cpu` with the tracked
     checkpoint on the first batch of the test split: the split's first
     episode (seed 202) cut to its first 5 utterances, of which 4 are
@@ -362,7 +346,7 @@ UNALIGNED_FIXTURE = os.path.join(ROOT, "tests", "fixtures",
 MIN_EQUAL_WINDOWS = 0.8
 
 
-def test_vad_windows_cli_at_full_width_on_the_cpu(tmp_path, one_thread):
+def test_vad_windows_cli_at_full_width_on_the_cpu(tmp_path):
     """`python -m tal_asrd_tpu_torch.cli.test --unaligned --vad-windows
     --device cpu` with the tracked checkpoint on the test split's first
     episode (180 s, seed 202): its decode windows equal the JAX CLI's

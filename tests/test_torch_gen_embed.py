@@ -122,15 +122,10 @@ def test_cli_matches_the_jax_cli(tmp_path, monkeypatch):
     monkeypatch.setattr(gen_embed, "speaker_posteriors", recording)
     monkeypatch.setattr(cli, "ASRSystem",
                         functools.partial(cli.ASRSystem, compute_dtype=torch.float32))
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    try:
-        embs, sids = cli.main(["--train-data", split, "--valid-data", split, "--tokenizer", BPE,
-                               "--model-type", "1x", "--num-speakers", "8", "--num-workers", "0",
-                               "--batch-size", str(fx["batch"]["cpu"]), "--load", CHECKPOINT,
-                               "--out-path", out, "--device", "cpu"])
-    finally:
-        torch.set_num_threads(n)
+    embs, sids = cli.main(["--train-data", split, "--valid-data", split, "--tokenizer", BPE,
+                           "--model-type", "1x", "--num-speakers", "8", "--num-workers", "0",
+                           "--batch-size", str(fx["batch"]["cpu"]), "--load", CHECKPOINT,
+                           "--out-path", out, "--device", "cpu"])
     want_rows, want_ids = arrays["gen_embed/cpu/rows"], arrays["gen_embed/cpu/ids"]
     assert len(embs) == fx["gen_embed"]["cpu"]["rows"] == len(want_rows) > 0
     np.testing.assert_array_equal(sids, want_ids)

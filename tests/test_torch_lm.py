@@ -222,8 +222,6 @@ def port_cli(tmp_path_factory, fixture):
             super().__init__(*args, **kwargs)
             load_into(self.model, init)
 
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)          # the tests run in several processes at once
     cwd = os.getcwd()
     try:
         os.chdir(ROOT)
@@ -231,7 +229,6 @@ def port_cli(tmp_path_factory, fixture):
             out = cli_train_lm.main(REF.fill(REF.TINY_ARGV, paths) + ["--device", "cpu"])
     finally:
         os.chdir(cwd)
-        torch.set_num_threads(threads)
     return dict(out, ckpt_dir=os.path.join(paths["CKPTS"], "tiny"))
 
 

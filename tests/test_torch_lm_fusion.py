@@ -88,15 +88,6 @@ def tiny_lm(vocab):
     return JDecoderLMModel(JLMConfig(**cfg)), {"params": tree}, tlm
 
 
-@pytest.fixture
-def one_thread():
-    """The tests run in several processes at once (pytest -n)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 # ---------------------------------------------------------------------------
 # beam search
 # ---------------------------------------------------------------------------
@@ -142,7 +133,7 @@ def port_beam(w, k, weight, fused=False, lm=True):
 
 @pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused"])
 @pytest.mark.parametrize("k", [1, 3])
-def test_beam_search_with_the_lm_matches_jax(beam_world, k, fused, one_thread):
+def test_beam_search_with_the_lm_matches_jax(beam_world, k, fused):
     out, ref = port_beam(beam_world, k, BEAM_WEIGHT, fused), beam_world["refs"][k]
     np.testing.assert_array_equal(out["found"].numpy(), ref["found"])
     np.testing.assert_array_equal(out["lengths"].numpy(), ref["lengths"])
@@ -153,7 +144,7 @@ def test_beam_search_with_the_lm_matches_jax(beam_world, k, fused, one_thread):
 
 
 @pytest.mark.parametrize("case", ["weight_without_lm", "lm_at_weight_0"])
-def test_no_fusion_without_an_lm_or_a_weight(beam_world, case, one_thread):
+def test_no_fusion_without_an_lm_or_a_weight(beam_world, case):
     """As the reference: fusion needs an LM and lm_weight > 0; either alone
     decodes as without an LM, bit for bit."""
     if case == "weight_without_lm":
@@ -175,44 +166,39 @@ SM_SPEC = dict(eos_id=1, chunk_size=24, max_positions=32, max_tokens=256, max_it
 
 @pytest.fixture(scope="module")
 def machine():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        jmodel, variables, tmodel = tiny_model_pair(seed=5)
-        jlm, lm_vars, tlm = tiny_lm(tmodel.cfg.vocab_size)
-        kw = dict(SM_SPEC, text_vocab_size=tmodel.cfg.vocab_size)
-        audio = (np.random.default_rng(0).standard_normal((3, SM_SAMPLES)) * 0.1
-                 ).astype(np.float32)
-        encode = jax.jit(lambda v, a, n: jmodel.apply(v, a, n, False, method=JASRModel.encode))
-        lens = [SM_SAMPLES - 5000, SM_SAMPLES, SM_SAMPLES]
-        j_enc = encode(variables, jnp.asarray(audio[:1]), jnp.asarray(lens[:1]))
-        j_len = int((~np.asarray(j_enc["encoder_padding_mask"][0])).sum())
-        ref = jax.tree_util.tree_map(np.asarray, jax.jit(
-            lambda v, e, n, lv: j_unaligned_decode(jmodel, v, e, n, JUnalignedSpec(**kw),
-                                                   lm=jlm, lm_variables=lv))(
-            variables, j_enc, jnp.asarray(j_len), lm_vars))
-        jb_enc = encode(variables, jnp.asarray(audio), jnp.asarray([SM_SAMPLES] * 3))
-        jb_lens = jnp.asarray((~np.asarray(jb_enc["encoder_padding_mask"])).sum(-1), jnp.int32)
-        jb = jax.tree_util.tree_map(np.asarray, jax.jit(
-            lambda v, e, n, lv: j_unaligned_decode_batched(
-                jmodel, v, e, n, JUnalignedSpec(**kw), lm=jlm, lm_variables=lv))(
-            variables, jb_enc, jb_lens, lm_vars))
-        with torch.inference_mode():
-            t_enc = tmodel.encode(torch.from_numpy(audio[:1]), torch.tensor(lens[:1]))
-            tb_enc = tmodel.encode(torch.from_numpy(audio), torch.tensor([SM_SAMPLES] * 3))
-        spec = UnalignedSpec(**kw)
-        port = unaligned_decode(tmodel, t_enc, j_len, spec, lm=tlm)
-        # without the LM (held to JAX by tests/test_torch_unaligned.py)
-        port_no_lm = unaligned_decode(tmodel, t_enc, j_len, spec)
-        port_fused = unaligned_decode(FusedASRDecoder(tmodel), t_enc, j_len, spec, lm=tlm)
-        tb_lens = (~tb_enc["encoder_padding_mask"]).sum(-1)
-        port_b = unaligned_decode_batched(tmodel, tb_enc, tb_lens, spec, lm=tlm)
-        singles = [unaligned_decode(tmodel, {"encoder_out": tb_enc["encoder_out"][i:i + 1]},
-                                    int(tb_lens[i]), spec, lm=tlm) for i in range(3)]
-        return dict(ref=ref, jb=jb, port=port, port_no_lm=port_no_lm, port_fused=port_fused,
-                    port_b=port_b, singles=singles)
-    finally:
-        torch.set_num_threads(threads)
+    jmodel, variables, tmodel = tiny_model_pair(seed=5)
+    jlm, lm_vars, tlm = tiny_lm(tmodel.cfg.vocab_size)
+    kw = dict(SM_SPEC, text_vocab_size=tmodel.cfg.vocab_size)
+    audio = (np.random.default_rng(0).standard_normal((3, SM_SAMPLES)) * 0.1
+             ).astype(np.float32)
+    encode = jax.jit(lambda v, a, n: jmodel.apply(v, a, n, False, method=JASRModel.encode))
+    lens = [SM_SAMPLES - 5000, SM_SAMPLES, SM_SAMPLES]
+    j_enc = encode(variables, jnp.asarray(audio[:1]), jnp.asarray(lens[:1]))
+    j_len = int((~np.asarray(j_enc["encoder_padding_mask"][0])).sum())
+    ref = jax.tree_util.tree_map(np.asarray, jax.jit(
+        lambda v, e, n, lv: j_unaligned_decode(jmodel, v, e, n, JUnalignedSpec(**kw),
+                                               lm=jlm, lm_variables=lv))(
+        variables, j_enc, jnp.asarray(j_len), lm_vars))
+    jb_enc = encode(variables, jnp.asarray(audio), jnp.asarray([SM_SAMPLES] * 3))
+    jb_lens = jnp.asarray((~np.asarray(jb_enc["encoder_padding_mask"])).sum(-1), jnp.int32)
+    jb = jax.tree_util.tree_map(np.asarray, jax.jit(
+        lambda v, e, n, lv: j_unaligned_decode_batched(
+            jmodel, v, e, n, JUnalignedSpec(**kw), lm=jlm, lm_variables=lv))(
+        variables, jb_enc, jb_lens, lm_vars))
+    with torch.inference_mode():
+        t_enc = tmodel.encode(torch.from_numpy(audio[:1]), torch.tensor(lens[:1]))
+        tb_enc = tmodel.encode(torch.from_numpy(audio), torch.tensor([SM_SAMPLES] * 3))
+    spec = UnalignedSpec(**kw)
+    port = unaligned_decode(tmodel, t_enc, j_len, spec, lm=tlm)
+    # without the LM (held to JAX by tests/test_torch_unaligned.py)
+    port_no_lm = unaligned_decode(tmodel, t_enc, j_len, spec)
+    port_fused = unaligned_decode(FusedASRDecoder(tmodel), t_enc, j_len, spec, lm=tlm)
+    tb_lens = (~tb_enc["encoder_padding_mask"]).sum(-1)
+    port_b = unaligned_decode_batched(tmodel, tb_enc, tb_lens, spec, lm=tlm)
+    singles = [unaligned_decode(tmodel, {"encoder_out": tb_enc["encoder_out"][i:i + 1]},
+                                int(tb_lens[i]), spec, lm=tlm) for i in range(3)]
+    return dict(ref=ref, jb=jb, port=port, port_no_lm=port_no_lm, port_fused=port_fused,
+                port_b=port_b, singles=singles)
 
 
 def test_state_machine_with_the_lm_matches_jax(machine):
@@ -251,49 +237,44 @@ RUNNER_WEIGHT = 0.2     # 0.6 drowns the tiny model: every VAD window ends at on
 
 @pytest.fixture(scope="module")
 def runner_runs(tmp_path_factory):
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        root = tmp_path_factory.mktemp("lm_runner")
-        jmodel, variables, tmodel = tiny_model_pair(seed=1, vocab_size=300, num_speakers=8)
-        params = jax.tree_util.tree_map(lambda a: np.array(a, copy=True),
-                                        to_numpy_tree(variables["params"]))
-        params["embedding"]["embedding"][300:] *= 3.0   # hypotheses carry speaker tokens
-        load_into(tmodel, {"params": params})
-        jvars = {"params": jax.tree_util.tree_map(jnp.asarray, params)}
-        jlm, lm_vars, tlm = tiny_lm(300)
-        out = {}
-        for side in ("port", "jax"):
-            build = build_synth_corpus if side == "port" else j_build_synth_corpus
-            load = load_audio_segment if side == "port" else j_load_audio_segment
-            split = str(root / side / "split")
-            build(split, **RUNNER_SPLIT)
-            with open(os.path.join(split, "transcript.pkl"), "rb") as f:
-                (stub, utts), = pickle.load(f).items()
-            wav = load(os.path.join(split, f"{stub}.wav"), 0.0, None)
-            res = {}
-            for leg in ("vad", "sm"):
-                d = str(root / side / leg)
-                if side == "port":
-                    runner = EvalRunner(tmodel, BpeTokenizer(model_path=BPE),
-                                        DecodeConfig(beam_size=3, lm_weight=RUNNER_WEIGHT),
-                                        out_dir=d, device="cpu", lm=tlm)
-                    spec = UnalignedSpec(**RUNNER_SPEC, lm_weight=runner.lm_weight)
-                else:
-                    runner = JEvalRunner(jmodel, jvars, JBpeTokenizer(model_path=BPE),
-                                         JDecodeConfig(beam_size=3, lm_weight=RUNNER_WEIGHT),
-                                         out_dir=d, lm=jlm, lm_variables=lm_vars)
-                    spec = JUnalignedSpec(**RUNNER_SPEC, lm_weight=RUNNER_WEIGHT)
-                if leg == "vad":
-                    runner.test_step_unaligned_vad(wav, len(wav), utts, batch_lanes=4)
-                else:
-                    runner.test_step_unaligned(wav, len(wav), utts, spec=spec)
-                with open(os.path.join(d, "test_result.pkl"), "rb") as f:
-                    res[leg] = pickle.load(f)
-            out[side] = res
-        return out
-    finally:
-        torch.set_num_threads(threads)
+    root = tmp_path_factory.mktemp("lm_runner")
+    jmodel, variables, tmodel = tiny_model_pair(seed=1, vocab_size=300, num_speakers=8)
+    params = jax.tree_util.tree_map(lambda a: np.array(a, copy=True),
+                                    to_numpy_tree(variables["params"]))
+    params["embedding"]["embedding"][300:] *= 3.0   # hypotheses carry speaker tokens
+    load_into(tmodel, {"params": params})
+    jvars = {"params": jax.tree_util.tree_map(jnp.asarray, params)}
+    jlm, lm_vars, tlm = tiny_lm(300)
+    out = {}
+    for side in ("port", "jax"):
+        build = build_synth_corpus if side == "port" else j_build_synth_corpus
+        load = load_audio_segment if side == "port" else j_load_audio_segment
+        split = str(root / side / "split")
+        build(split, **RUNNER_SPLIT)
+        with open(os.path.join(split, "transcript.pkl"), "rb") as f:
+            (stub, utts), = pickle.load(f).items()
+        wav = load(os.path.join(split, f"{stub}.wav"), 0.0, None)
+        res = {}
+        for leg in ("vad", "sm"):
+            d = str(root / side / leg)
+            if side == "port":
+                runner = EvalRunner(tmodel, BpeTokenizer(model_path=BPE),
+                                    DecodeConfig(beam_size=3, lm_weight=RUNNER_WEIGHT),
+                                    out_dir=d, device="cpu", lm=tlm)
+                spec = UnalignedSpec(**RUNNER_SPEC, lm_weight=runner.lm_weight)
+            else:
+                runner = JEvalRunner(jmodel, jvars, JBpeTokenizer(model_path=BPE),
+                                     JDecodeConfig(beam_size=3, lm_weight=RUNNER_WEIGHT),
+                                     out_dir=d, lm=jlm, lm_variables=lm_vars)
+                spec = JUnalignedSpec(**RUNNER_SPEC, lm_weight=RUNNER_WEIGHT)
+            if leg == "vad":
+                runner.test_step_unaligned_vad(wav, len(wav), utts, batch_lanes=4)
+            else:
+                runner.test_step_unaligned(wav, len(wav), utts, spec=spec)
+            with open(os.path.join(d, "test_result.pkl"), "rb") as f:
+                res[leg] = pickle.load(f)
+        out[side] = res
+    return out
 
 
 @pytest.mark.parametrize("leg", ["vad", "sm"])
@@ -335,7 +316,7 @@ def seeded_lm_path(tmp_path_factory):
     return path
 
 
-def test_cli_fuses_the_lm(tmp_path, seeded_lm_path, one_thread):
+def test_cli_fuses_the_lm(tmp_path, seeded_lm_path):
     """The aligned leg of the first 3 utterances of a 30 s episode at full
     width with the seeded LM and --bf16-params: the LM steps beside the
     decoder (its decode_step counted) and stays f32 while the ASR weights

@@ -144,16 +144,11 @@ def test_tracked_checkpoint_matches_the_jax_fixture(tmp_path):
     model = ASRModel(ModelConfig(model_type="1x", num_speakers=8, vocab_size=len(tok)),
                      device="cpu")
     load_into(model, load_pytree(CHECKPOINT))
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    try:
-        with torch.inference_mode():
-            enc = model.encode(torch.from_numpy(batch["audio"]),
-                               torch.from_numpy(batch["audio_lens"]))
-            got = greedy_noncausal(model, enc, torch.from_numpy(batch["text"][:, :1]).long(),
-                                   ref["max_len"], eos_id=tok.eos_token_id)
-    finally:
-        torch.set_num_threads(n)
+    with torch.inference_mode():
+        enc = model.encode(torch.from_numpy(batch["audio"]),
+                           torch.from_numpy(batch["audio_lens"]))
+        got = greedy_noncausal(model, enc, torch.from_numpy(batch["text"][:, :1]).long(),
+                               ref["max_len"], eos_id=tok.eos_token_id)
     assert got["lengths"].tolist() == ref["lengths"]
     assert [got["tokens"][i, :n_i].tolist() for i, n_i in enumerate(ref["lengths"])] == \
         ref["tokens"]

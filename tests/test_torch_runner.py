@@ -144,13 +144,7 @@ BATCH = 5        # the split's 5 segments in one batch, as the CLI's batch 64 ta
 
 @pytest.fixture(scope="module")
 def slice_runs(tmp_path_factory):
-    # one intra-op thread: the tests run in several processes at once
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        return _slice_runs(tmp_path_factory.mktemp("slice"))
-    finally:
-        torch.set_num_threads(threads)
+    return _slice_runs(tmp_path_factory.mktemp("slice"))
 
 
 def _slice_runs(root):

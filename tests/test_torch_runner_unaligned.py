@@ -61,52 +61,47 @@ def episodes(split, loader):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)          # the tests run in several processes at once
-    try:
-        root = tmp_path_factory.mktemp("long_form")
-        jmodel, variables, tmodel = tiny_model_pair(seed=SEED, vocab_size=300,
-                                                    num_speakers=8)
-        params = jax.tree_util.tree_map(lambda a: np.array(a, copy=True),
-                                        to_numpy_tree(variables["params"]))
-        params["embedding"]["embedding"][300:] *= SPEAKER_SCALE
-        load_into(tmodel, {"params": params})
-        jvars = {"params": jax.tree_util.tree_map(jnp.asarray, params)}
+    root = tmp_path_factory.mktemp("long_form")
+    jmodel, variables, tmodel = tiny_model_pair(seed=SEED, vocab_size=300,
+                                                num_speakers=8)
+    params = jax.tree_util.tree_map(lambda a: np.array(a, copy=True),
+                                    to_numpy_tree(variables["params"]))
+    params["embedding"]["embedding"][300:] *= SPEAKER_SCALE
+    load_into(tmodel, {"params": params})
+    jvars = {"params": jax.tree_util.tree_map(jnp.asarray, params)}
 
-        out = {}
-        for side in ("port", "jax"):
-            build = build_synth_corpus if side == "port" else j_build_synth_corpus
-            load = load_audio_segment if side == "port" else j_load_audio_segment
-            build(str(root / side / "split"), **SPLIT)
-            build(str(root / side / "vad_split"), **VAD_SPLIT)
-            eps = episodes(str(root / side / "split"), load)
-            assert len(eps) == 2 and len(eps[0][0]) == len(eps[1][0])
-            n = len(eps[0][0])
-            ((vad_wav, vad_utts),) = episodes(str(root / side / "vad_split"), load)
-            res = {}
-            for leg in ("batched", "single", "vad"):
-                d = str(root / side / leg)
-                if side == "port":
-                    runner = EvalRunner(tmodel, BpeTokenizer(model_path=BPE),
-                                        DecodeConfig(beam_size=3), out_dir=d, device="cpu")
-                    spec = UnalignedSpec(**SPEC)
-                else:
-                    runner = JEvalRunner(jmodel, jvars, JBpeTokenizer(model_path=BPE),
-                                         JDecodeConfig(beam_size=3), out_dir=d)
-                    spec = JUnalignedSpec(**SPEC)
-                if leg == "batched":
-                    info = runner.test_step_unaligned_batched(
-                        [w for w, _ in eps], n, [u for _, u in eps], spec=spec)
-                elif leg == "single":
-                    info = runner.test_step_unaligned(eps[0][0], n, eps[0][1], spec=spec)
-                else:
-                    info = runner.test_step_unaligned_vad(vad_wav, len(vad_wav), vad_utts,
-                                                          batch_lanes=VAD_LANES)
-                res[leg] = dict(out=d, info=info)
-            out[side] = res
-        return out
-    finally:
-        torch.set_num_threads(threads)
+    out = {}
+    for side in ("port", "jax"):
+        build = build_synth_corpus if side == "port" else j_build_synth_corpus
+        load = load_audio_segment if side == "port" else j_load_audio_segment
+        build(str(root / side / "split"), **SPLIT)
+        build(str(root / side / "vad_split"), **VAD_SPLIT)
+        eps = episodes(str(root / side / "split"), load)
+        assert len(eps) == 2 and len(eps[0][0]) == len(eps[1][0])
+        n = len(eps[0][0])
+        ((vad_wav, vad_utts),) = episodes(str(root / side / "vad_split"), load)
+        res = {}
+        for leg in ("batched", "single", "vad"):
+            d = str(root / side / leg)
+            if side == "port":
+                runner = EvalRunner(tmodel, BpeTokenizer(model_path=BPE),
+                                    DecodeConfig(beam_size=3), out_dir=d, device="cpu")
+                spec = UnalignedSpec(**SPEC)
+            else:
+                runner = JEvalRunner(jmodel, jvars, JBpeTokenizer(model_path=BPE),
+                                     JDecodeConfig(beam_size=3), out_dir=d)
+                spec = JUnalignedSpec(**SPEC)
+            if leg == "batched":
+                info = runner.test_step_unaligned_batched(
+                    [w for w, _ in eps], n, [u for _, u in eps], spec=spec)
+            elif leg == "single":
+                info = runner.test_step_unaligned(eps[0][0], n, eps[0][1], spec=spec)
+            else:
+                info = runner.test_step_unaligned_vad(vad_wav, len(vad_wav), vad_utts,
+                                                      batch_lanes=VAD_LANES)
+            res[leg] = dict(out=d, info=info)
+        out[side] = res
+    return out
 
 
 def read(d, name):

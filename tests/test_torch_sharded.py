@@ -54,16 +54,6 @@ def tiny_batch():
     return audio, LENS
 
 
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread: the tiny model's many small operators run
-    faster so, and the tests run in several processes at once."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 BEAMS = (1, 3)
 JAX_BEAM = 3          # one JAX compile a beam size: the reference runs at the wider one
 SM_SPEC = dict(eos_id=1, chunk_size=16, max_positions=32, stall_patience=4,

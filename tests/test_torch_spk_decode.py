@@ -21,7 +21,7 @@ from tal_asrd_tpu_torch.decode.beam import BeamSearchSpec, beam_search
 from tal_asrd_tpu_torch.models.asr import ASRModel
 
 from tests.test_torch_helpers import tiny_audio, tiny_model_pair
-from tests.test_torch_lm_fusion import one_thread, tiny_lm  # noqa: F401 (a fixture)
+from tests.test_torch_lm_fusion import tiny_lm
 
 MAX_NEW, BATCH, LM_WEIGHT = 7, 3, 0.6
 TRACK_ATOL = 1e-2          # the track is stored in bf16 by both packages
@@ -82,7 +82,7 @@ def port_search(w, k, force, with_lm, model=None, collect=True):
 
 
 @pytest.mark.parametrize("k,force,with_lm", CASES)
-def test_speaker_track_matches_jax(beam_world, k, force, with_lm, one_thread):
+def test_speaker_track_matches_jax(beam_world, k, force, with_lm):
     out, ref = port_search(beam_world, k, force, with_lm), beam_world["refs"][(k, force, with_lm)]
     np.testing.assert_array_equal(out["found"].numpy(), ref["found"])
     np.testing.assert_array_equal(out["lengths"].numpy(), ref["lengths"])
@@ -97,7 +97,7 @@ def test_speaker_track_matches_jax(beam_world, k, force, with_lm, one_thread):
 
 
 @pytest.mark.parametrize("k,with_lm", [(1, False), (3, False), (3, True)])
-def test_the_head_never_moves_the_search(beam_world, k, with_lm, one_thread):
+def test_the_head_never_moves_the_search(beam_world, k, with_lm):
     """The same text weights without the head, and the head model without
     its track, give the head model's tokens."""
     out = port_search(beam_world, k, True, with_lm)

@@ -56,12 +56,7 @@ def head_pair(seed=2, eos_scale=2.0):
 
 @pytest.fixture(scope="module")
 def runner_runs(tmp_path_factory):
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        return _runner_runs(tmp_path_factory.mktemp("spk_runner"))
-    finally:
-        torch.set_num_threads(threads)
+    return _runner_runs(tmp_path_factory.mktemp("spk_runner"))
 
 
 SM_SPEC = dict(eos_id=1, chunk_size=48, max_positions=32, max_tokens=128, max_iters=300,

@@ -145,8 +145,6 @@ def port_run(tmp_path_factory, fixture):
         vals[-1]["batches"].append({k: float(m[k]) for k in ("loss", "lm_loss", "spk_loss")})
         return m
 
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
     with mock.patch.dict(os.environ, {"TAL_TINY_ARCH": "1"}), \
             mock.patch.object(cli_train, "build_configs", _f32_no_noise(build_configs)), \
             mock.patch.object(cli_train, "ASRSystem",
@@ -167,7 +165,6 @@ def port_run(tmp_path_factory, fixture):
             out = cli_train.main(_fill(fixture["argv"], paths) + ["--device", "cpu"])
         finally:
             os.chdir(cwd)
-            torch.set_num_threads(threads)
     with open(os.path.join(paths["OUT"], "tiny.metrics.jsonl")) as f:
         recs = [json.loads(line) for line in f if line.strip()]
     ckpt_dir = os.path.join(paths["CKPTS"], "tiny")

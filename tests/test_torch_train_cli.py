@@ -89,8 +89,6 @@ def port_runs(tmp_path_factory):
     paths["INIT"] = os.path.join(tmp, "init.msgpack")
     for name, split in TINY_SPLITS.items():
         build_synth_corpus(paths[name.upper()], **split)
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)          # the tests run in several processes at once
     with mock.patch.dict(os.environ, {"TAL_TINY_ARCH": "1"}), \
             mock.patch.object(cli_train, "build_configs", _f32_no_noise(build_configs)), \
             mock.patch.object(cli_train, "ASRSystem",
@@ -121,7 +119,6 @@ def port_runs(tmp_path_factory):
                               "states": [n for n in new if n.startswith("state_")]}
         finally:
             os.chdir(cwd)
-            torch.set_num_threads(threads)
     return {"runs": runs, "ckpt_dir": ckpt_dir, "init": init}
 
 
@@ -269,15 +266,9 @@ def test_flags_outside_the_slice_are_refused(tmp_path, flags, item):
             "--batch-size", "2", "--max-secs", "12", "--num-workers", "0", "--quick-test",
             "--max-epochs", "1", "--no-specaug", "--name", "run", "--checkpoint-path",
             str(tmp_path / "ckpts"), "--out-dir", str(tmp_path / "out"), "--device", "cpu"]
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        with mock.patch.dict(os.environ, {"TAL_TINY_ARCH": "1"}), \
-                mock.patch.object(cli_train, "TrainerConfig",
-                                  partial(TrainerConfig, log_every=1)):
-            out = cli_train.main(argv + flags)
-    finally:
-        torch.set_num_threads(threads)
+    with mock.patch.dict(os.environ, {"TAL_TINY_ARCH": "1"}), \
+            mock.patch.object(cli_train, "TrainerConfig", partial(TrainerConfig, log_every=1)):
+        out = cli_train.main(argv + flags)
     system = out["system"]
     assert system.model.cfg.use_speaker_head and system.train_cfg.spk_weight == 0.5
     assert system.model.cfg.num_tokens == 300                  # no speaker tokens

@@ -102,8 +102,6 @@ def test_transcribe_cli_with_the_tracked_checkpoint(tmp_path):
     width with the tracked checkpoint: a directory of one 12 s wav from the
     synthetic test split, 5 s windows, beam 2, spliced; writes the
     transcript and skips it on a second run."""
-    import torch
-
     from tal_asrd_tpu_torch.cli.transcribe import main
     from tal_asrd_tpu_torch.data.audio_io import load_audio_segment, write_wav
     from tal_asrd_tpu_torch.data.synth import build_synth_corpus
@@ -116,17 +114,12 @@ def test_transcribe_cli_with_the_tracked_checkpoint(tmp_path):
             "--num-speakers", "8", "--load", os.path.join(ROOT, "accuracy_release",
                                                          "avg_last_3.bf16.msgpack"),
             "--window-secs", "5", "--beam-size", "2", "--length", "24", "--device", "cpu"]
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        written = main(argv)
-        assert list(written) == [os.path.join(audio, "ep0.wav")]
-        with open(os.path.join(out, "ep0.txt")) as f:
-            text = f.read()
-        assert text.strip() and text == written[os.path.join(audio, "ep0.wav")] + "\n"
-        assert main(argv) == {}          # the transcript exists: skipped
-    finally:
-        torch.set_num_threads(n)
+    written = main(argv)
+    assert list(written) == [os.path.join(audio, "ep0.wav")]
+    with open(os.path.join(out, "ep0.txt")) as f:
+        text = f.read()
+    assert text.strip() and text == written[os.path.join(audio, "ep0.wav")] + "\n"
+    assert main(argv) == {}          # the transcript exists: skipped
 
 
 def test_transcribe_cli_lm_weight_is_inert(tmp_path):
@@ -134,8 +127,6 @@ def test_transcribe_cli_lm_weight_is_inert(tmp_path):
     the weight changes nothing; the port's runs it so (it exited before LM
     fusion was ported): the same transcript at --lm-weight 0.3 and 0, at
     full width with the tracked checkpoint."""
-    import torch
-
     from tal_asrd_tpu_torch.cli.transcribe import main
     from tal_asrd_tpu_torch.data.audio_io import load_audio_segment, write_wav
     from tal_asrd_tpu_torch.data.synth import build_synth_corpus
@@ -147,11 +138,6 @@ def test_transcribe_cli_lm_weight_is_inert(tmp_path):
     argv = ["--audio", audio, "--tokenizer", BPE, "--model-type", "1x", "--num-speakers", "8",
             "--load", os.path.join(ROOT, "accuracy_release", "avg_last_3.bf16.msgpack"),
             "--window-secs", "5", "--beam-size", "2", "--length", "16", "--device", "cpu"]
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        texts = [main(argv + ["--out-dir", str(tmp_path / f"out{w}"), "--lm-weight", w])[wav]
-                 for w in ("0.3", "0")]
-    finally:
-        torch.set_num_threads(n)
+    texts = [main(argv + ["--out-dir", str(tmp_path / f"out{w}"), "--lm-weight", w])[wav]
+             for w in ("0.3", "0")]
     assert texts[0] == texts[1] and texts[0].strip()

@@ -64,44 +64,39 @@ def spec_kw(name):
 
 @pytest.fixture(scope="module")
 def runs():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)          # the tests run in several processes at once
-    try:
-        jmodel, variables, tmodel = tiny_model_pair(seed=SEED)
-        rng = np.random.default_rng(0)
-        audio = (rng.standard_normal((3, SAMPLES)) * 0.1).astype(np.float32)
-        encode = jax.jit(lambda v, a, n: jmodel.apply(v, a, n, False, method=JASRModel.encode))
+    jmodel, variables, tmodel = tiny_model_pair(seed=SEED)
+    rng = np.random.default_rng(0)
+    audio = (rng.standard_normal((3, SAMPLES)) * 0.1).astype(np.float32)
+    encode = jax.jit(lambda v, a, n: jmodel.apply(v, a, n, False, method=JASRModel.encode))
 
-        # one episode, AUDIO_LEN valid samples
-        j_enc = encode(variables, jnp.asarray(audio[:1]), jnp.asarray([AUDIO_LEN]))
-        j_len = int((~np.asarray(j_enc["encoder_padding_mask"][0])).sum())
-        with torch.inference_mode():
-            t_enc = tmodel.encode(torch.from_numpy(audio[:1]), torch.tensor([AUDIO_LEN]))
-        t_len = int((~t_enc["encoder_padding_mask"][0]).sum())
-        assert j_len == t_len
-        ref = {}
-        for name in CONFIGS:
-            spec = JUnalignedSpec(**spec_kw(name))
-            out = jax.jit(lambda v, e, n, s=spec: j_unaligned_decode(jmodel, v, e, n, s))(
-                variables, j_enc, jnp.asarray(j_len))
-            ref[name] = jax.tree_util.tree_map(np.asarray, out)
-        port = {name: unaligned_decode(tmodel, t_enc, t_len, UnalignedSpec(**spec_kw(name)))
-                for name in CONFIGS}
+    # one episode, AUDIO_LEN valid samples
+    j_enc = encode(variables, jnp.asarray(audio[:1]), jnp.asarray([AUDIO_LEN]))
+    j_len = int((~np.asarray(j_enc["encoder_padding_mask"][0])).sum())
+    with torch.inference_mode():
+        t_enc = tmodel.encode(torch.from_numpy(audio[:1]), torch.tensor([AUDIO_LEN]))
+    t_len = int((~t_enc["encoder_padding_mask"][0]).sum())
+    assert j_len == t_len
+    ref = {}
+    for name in CONFIGS:
+        spec = JUnalignedSpec(**spec_kw(name))
+        out = jax.jit(lambda v, e, n, s=spec: j_unaligned_decode(jmodel, v, e, n, s))(
+            variables, j_enc, jnp.asarray(j_len))
+        ref[name] = jax.tree_util.tree_map(np.asarray, out)
+    port = {name: unaligned_decode(tmodel, t_enc, t_len, UnalignedSpec(**spec_kw(name)))
+            for name in CONFIGS}
 
-        # three equal-length episodes, encoded together
-        jb_enc = encode(variables, jnp.asarray(audio), jnp.asarray([SAMPLES] * 3))
-        jb_lens = jnp.asarray((~np.asarray(jb_enc["encoder_padding_mask"])).sum(-1), jnp.int32)
-        bspec = dict(BASE, **BATCH_CONFIG)
-        jb = jax.tree_util.tree_map(np.asarray, jax.jit(
-            lambda v, e, n: j_unaligned_decode_batched(
-                jmodel, v, e, n, JUnalignedSpec(**bspec)))(variables, jb_enc, jb_lens))
-        with torch.inference_mode():
-            tb_enc = tmodel.encode(torch.from_numpy(audio), torch.tensor([SAMPLES] * 3))
-        tb_lens = (~tb_enc["encoder_padding_mask"]).sum(-1)
-        yield dict(tmodel=tmodel, t_enc=t_enc, t_len=t_len, ref=ref, port=port,
-                   jb=jb, tb_enc=tb_enc, tb_lens=tb_lens, bspec=bspec)
-    finally:
-        torch.set_num_threads(threads)
+    # three equal-length episodes, encoded together
+    jb_enc = encode(variables, jnp.asarray(audio), jnp.asarray([SAMPLES] * 3))
+    jb_lens = jnp.asarray((~np.asarray(jb_enc["encoder_padding_mask"])).sum(-1), jnp.int32)
+    bspec = dict(BASE, **BATCH_CONFIG)
+    jb = jax.tree_util.tree_map(np.asarray, jax.jit(
+        lambda v, e, n: j_unaligned_decode_batched(
+            jmodel, v, e, n, JUnalignedSpec(**bspec)))(variables, jb_enc, jb_lens))
+    with torch.inference_mode():
+        tb_enc = tmodel.encode(torch.from_numpy(audio), torch.tensor([SAMPLES] * 3))
+    tb_lens = (~tb_enc["encoder_padding_mask"]).sum(-1)
+    return dict(tmodel=tmodel, t_enc=t_enc, t_len=t_len, ref=ref, port=port,
+                jb=jb, tb_enc=tb_enc, tb_lens=tb_lens, bspec=bspec)
 
 
 def assert_same_run(got, ref, lane=None):
